@@ -1,0 +1,1 @@
+from repro_torch.data.synthetic import SyntheticLM, make_batch  # noqa: F401
