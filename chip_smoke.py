@@ -7,8 +7,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build — every kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together), with the ``-Xptxas -v`` report.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, within the stated tolerance, and
-   timed beside its bound, its plain version and one PyTorch library call.
+   the shapes the serving and training paths give it, within the stated
+   tolerance, and timed beside its bound, its plain version and one
+   PyTorch library call: K1 forward, K1 backward (also run twice and
+   required bit-identical) and K2 fused Adam (also the two-stage
+   ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one launch).
 4. serve — ``ServeEngine`` at GPT-65B full width (depth cut to
    ``SERVE_LAYERS``), bf16 params tiered across host and SSD, three requests
    (2048/1024/512-token prompts, 16 new tokens each) with a mid-run
@@ -16,9 +19,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    closed form) exactly, every request's tokens equal to the port's
    in-memory B=1 reference decode, K1 launches == prefills x layers, and a
    small f32 model on the card agreeing with the same model on the CPU.
+5. train — ``OffloadEngine`` at GPT-65B full width (depth cut to
+   ``TRAIN_LAYERS``), bf16, vertical schedule, M = 4 micro-batches of
+   1 x 2048 tokens, alpha = 0.25, every tier split half host / half SSD,
+   2 steps then ``finish()``. Checks: (a) the measured byte meters equal
+   ``plan_traffic`` x steps exactly, and the closed forms where they
+   apply; (b) the losses match the port's in-memory ``make_train_step``
+   from the same initial params; (c) K1 forward launches == 2 L M steps,
+   K1 backward == L M steps, K2 == 3 steps; (d) gpt-tiny in f32 with
+   deterministic algorithms: alpha = 0 and alpha = 0.25 losses bitwise
+   equal; (e) gpt-tiny f32 on the card against the same engine on the
+   CPU. Also measures the card's busy time in the training steps (CUDA
+   events around each layer, embedding and head call).
 
-Prints every measurement (a ``serve stats`` JSON line, a
-``{"kernels": [...]}`` line with each shape's numbers), the
+Prints every measurement (``serve stats`` and ``train stats`` JSON lines,
+a ``{"kernels": [...]}`` line with each kernel's numbers), the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -39,6 +55,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# deterministic cuBLAS needs its workspace fixed before the first cuBLAS
+# call (the train phase's bitwise alpha check turns determinism on)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 PEAK_BYTES_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
@@ -52,7 +71,19 @@ REL_TOL = 1e-2
 # per-step SSD->host->device parameter stream (~1.6 GB per layer) fits the
 # run's time limit
 SERVE_LAYERS = 2
-
+# the same cut for training: each GPT-65B layer is ~805 M parameters,
+# ~11.3 GB of bf16 params + f32 master/m/v moved through the host Adam
+# and the SSD tier every step; 2 layers keep two steps (and the host
+# RAM, ~96 GiB) inside the run's limits
+TRAIN_LAYERS = 2
+TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS = 4, 1, 2048, 2
+# loss gate against the in-memory oracle, at both steps: the two start
+# from the same bf16 params and apply the same first Adam update (the
+# oracle's f32 head masters and the engine's bf16 head only part from
+# step 2's update on), so they differ by the order of f32 sums alone; a
+# skipped layer update or a lost alpha tail moves the step-2 loss by
+# far more (PERF.md, Findings)
+LOSS_RTOL = 1e-4
 # (name, B, Hq, Hk, S, hd, dtype, causal, window, q0)
 K1_SHAPES = [
     ("gpt-65b prefill S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None, 0),
@@ -63,6 +94,27 @@ K1_SHAPES = [
     ("small f32 gqa window q0", 1, 8, 2, 200, 64, "float32", True, 48, 16),
 ]
 HEADLINE = "gpt-65b prefill S=2048"
+
+# K1 backward: (name, B, Hq, Hk, S, hd, dtype, causal, window)
+K1B_SHAPES = [
+    ("gpt-65b train S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None),
+    ("qwen3-4b gqa S=1024", 1, 32, 8, 1024, 128, "bfloat16", True, None),
+    ("small f32 non-causal", 2, 4, 4, 256, 64, "float32", False, None),
+    ("small f32 gqa window ragged", 1, 8, 2, 200, 64, "float32", True, 48),
+]
+K1B_HEADLINE = "gpt-65b train S=2048"
+
+# K2: (name, n, p dtype, step); n = 50304 x 8192 is GPT-65B's embedding
+# (padded vocab x d_model), the largest HEAD_ADAM update
+K2_CASES = [
+    ("gpt-65b embed bf16 step 1", 50304 * 8192, "bfloat16", 1),
+    ("gpt-65b embed bf16 step 10", 50304 * 8192, "bfloat16", 10),
+    ("n=4097 f32 step 1", 4097, "float32", 1),
+    ("n=4097 f32 step 10", 4097, "float32", 10),
+]
+K2_HEADLINE = "gpt-65b embed bf16 step 1"
+# tests/test_kernels.py's K2 tolerances (atol; rtol 1e-7): p', m', v', bf16 p'
+K2_TOL = (1e-6, 1e-7, 1e-7, 2e-2)
 
 
 def nvidia_smi_line() -> str:
@@ -159,6 +211,142 @@ def phase_kernels(torch, fa, report):
     return rows
 
 
+def k1_bwd_work(B, Hq, Hk, S, hd, dtype, causal, window):
+    """(bytes, flops) K1's backward needs on these inputs: q, k, v, out,
+    dO and lse read once, dq, dk, dv written once; five products of
+    2*hd FLOP (QK^T, dO V^T, P^T dO, dS K, dS^T Q) per admitted pair."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * hd * S * (4 * B * Hq + 4 * B * Hk) + 4 * B * Hq * S
+    _, fwd_flops = k1_work(B, Hq, Hk, S, hd, dtype, causal, window, 0)
+    return nbytes, fwd_flops // 4 * 10
+
+
+def phase_k1_bwd(torch, fa, report):
+    import torch.nn.functional as F
+    rows = []
+    for (name, B, Hq, Hk, S, hd, dts, causal, window) in K1B_SHAPES:
+        dt = getattr(torch, dts)
+        g = torch.Generator(device="cuda").manual_seed(100 + len(rows))
+        q, do = (torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        tol = TOL[dts]
+        err = rel_err = 0.0
+        ok = all(torch.equal(a, b) for a, b in zip(got, again))
+        deterministic = ok
+        for a, w in zip(got, want):
+            diff = (a.float() - w.float()).abs()
+            err = max(err, diff.max().item())
+            rel_err = max(rel_err, (diff.norm() / w.float().norm()).item())
+            ok = ok and bool(torch.isfinite(a.float()).all()) and bool(
+                (diff <= tol + tol * w.float().abs()).all())
+        ok = ok and rel_err <= REL_TOL
+        reps = 5 if S >= 1024 else 20
+        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                                    **kw), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, **kw), 2, warmup=1)
+        lib_ms = None
+        if window is None:
+            G = Hq // Hk
+            qr = q.detach().requires_grad_()
+            kr = k.repeat_interleave(G, dim=1).detach().requires_grad_()
+            vr = v.repeat_interleave(G, dim=1).detach().requires_grad_()
+            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, (qr, kr, vr), do, retain_graph=True), reps)
+            del qr, kr, vr, o
+        nbytes, flops = k1_bwd_work(B, Hq, Hk, S, hd, dts, causal, window)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dts] * 1e3
+        row = {"shape": name, "q": [B, Hq, S, hd], "kv_heads": Hk,
+               "dtype": dts, "causal": causal, "window": window,
+               "max_abs_err": err, "rel_err": rel_err, "tol": tol,
+               "rel_tol": REL_TOL, "deterministic": deterministic,
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tflops": flops / (ms * 1e-3) / 1e12}
+        rows.append(row)
+        report(f"K1 bwd {name}: err {err:.3e} (tol {tol}) rel_err "
+               f"{rel_err:.3e} (tol {REL_TOL}) deterministic "
+               f"{deterministic} | kernel {ms:.4f} ms ({row['tflops']:.2f} "
+               f"TFLOP/s) plain {plain_ms:.4f} ms sdpa-bwd {lib_ms} ms "
+               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) -> "
+               f"{'OK' if ok else 'FAIL'}")
+        del q, k, v, do, out, lse, got, again, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k2(torch, fad, report):
+    rows = []
+    for (name, n, pdt, step) in K2_CASES:
+        g = torch.Generator(device="cuda").manual_seed(200 + len(rows))
+        p = torch.randn(n, device="cuda", generator=g).to(getattr(torch, pdt))
+        m = torch.randn(n, device="cuda", generator=g) * 0.1
+        v = torch.randn(n, device="cuda", generator=g).abs() * 0.01
+        gr = torch.randn(n, device="cuda", generator=g)
+        got = fad.fused_adam(p, m, v, gr, step, lr=1e-2)
+        torch.cuda.synchronize()
+        ok, errs = True, []
+        want = fad.fused_adam_plain(p, m, v, gr, step, lr=1e-2)
+        for a, w, tol in zip(got, want, K2_TOL):
+            diff = (a.float() - w.float()).abs()
+            errs.append(diff.max().item())
+            ok = ok and bool((diff <= tol + 1e-7 * w.float().abs()).all())
+        err = max(errs[:3])      # p', m', v' (the bf16 copy has its own tol)
+        del want
+        k = int(round(0.75 * n))
+        p1, m1, v1, _ = fad.fused_adam(p, m, v, gr, step, lo=0, hi=k,
+                                       lr=1e-2)
+        two = fad.fused_adam(p1, m1, v1, gr, step, lo=k, hi=n, lr=1e-2)
+        two_stage = all(torch.equal(a, b) for a, b in zip(got, two))
+        ok = ok and two_stage
+        del p1, m1, v1, two, got
+        torch.cuda.empty_cache()
+        reps = 10 if n > 1 << 20 else 100
+        ms = cuda_ms(lambda: fad.fused_adam(p, m, v, gr, step, lr=1e-2), reps)
+        plain_ms = cuda_ms(lambda: fad.fused_adam_plain(p, m, v, gr, step,
+                                                        lr=1e-2),
+                           max(2, reps // 5), warmup=1)
+        torch.cuda.empty_cache()
+        # yardstick: PyTorch's fused Adam step over an f32 copy of p
+        w = p.float().clone().requires_grad_()
+        w.grad = gr
+        opt = torch.optim.Adam([w], lr=1e-2, betas=(0.9, 0.95), eps=1e-8,
+                               fused=True)
+        lib_ms = cuda_ms(opt.step, reps)
+        del w, opt
+        item = p.element_size()
+        nbytes = n * (item + 12) + n * (12 + 2)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = 20 * n / PEAK_FLOPS["float32"] * 1e3
+        row = {"shape": name, "n": n, "p_dtype": pdt, "step": step,
+               "max_abs_err": err, "tol": list(K2_TOL),
+               "two_stage_bitwise": two_stage, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
+        rows.append(row)
+        report(f"K2 {name}: err {err:.3e} two-stage bitwise {two_stage} | "
+               f"kernel {ms:.4f} ms ({row['gbytes_per_s']:.0f} GB/s) plain "
+               f"{plain_ms:.4f} ms torch-fused-adam {lib_ms:.4f} ms bound "
+               f"{row['bound_ms']:.4f} ms ({row['bound_by']}) -> "
+               f"{'OK' if ok else 'FAIL'}")
+        del p, m, v, gr
+        torch.cuda.empty_cache()
+    return rows
+
+
 def reference_decode(torch, mdl, params, cfg, prompt, gen, max_len):
     """The port's in-memory B=1 reference on the card: prefill + greedy
     decode. Returns (tokens, prefill seconds on the host clock,
@@ -231,7 +419,7 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
         rids = [eng.submit(p, gen) for p in prompts]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = 0                      # main path starts here
+        fa.fwd_launches = 0                  # main path starts here
         prefills, steps, preempted_rid = 0, 0, None
         t_run = time.perf_counter()
         step_s = []
@@ -248,7 +436,7 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
             if steps > 200:
                 raise RuntimeError("serve loop did not converge")
         run_s = time.perf_counter() - t_run
-        k1_launches = fa.launches            # main path ends here
+        k1_launches = fa.fwd_launches        # main path ends here
         peak = torch.cuda.max_memory_allocated()
         eng.close()          # settles the async SSD spills of the last step
         snap = eng.metrics_snapshot()
@@ -332,10 +520,287 @@ def phase_small_parity(torch, report):
     return [] if ok else [f"gpt-tiny card/CPU logits differ by {worst}"]
 
 
+def meminfo() -> dict:
+    """Host RAM (bytes) from /proc/meminfo."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            key, val = ln.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def check_train_bytes(eng, cfg, ocfg, steps):
+    """Gate (a): measured meters == plan_traffic x steps per (category,
+    route), exactly; and == the closed forms of core/traffic.py where
+    they cover a route (vertical, recompute: params fetched twice and
+    grads offloaded once per step, §3.4; checkpoints read twice minus
+    the on-device boundary micro-batch, §4.2)."""
+    from repro_torch.core.plan import PlanCosts, plan_traffic
+    from repro_torch.core.traffic import vertical_ckpt_traffic
+    measured = {k: int(v) for k, v in eng.meter.bytes.items()}
+    pred = {k: steps * int(v) for k, v in
+            plan_traffic(eng.plan, PlanCosts.from_engine(eng)).items()}
+    errs = [f"{c}:{r}: measured {measured.get((c, r), 0)} != plan "
+            f"{pred.get((c, r), 0)}" for (c, r) in set(measured) | set(pred)
+            if measured.get((c, r), 0) != pred.get((c, r), 0)]
+    item = eng.dtype.itemsize
+    L, P, M = eng.L, eng.P, ocfg.num_microbatches
+    u = ocfg.micro_batch * ocfg.seq_len * cfg.d_model * item
+    ct = vertical_ckpt_traffic(L * u, M, L)
+    closed = {("param", "cpu->gpu"): 2 * L * P * item,
+              ("grad", "gpu->cpu"): L * P * 4,
+              ("grad", "cpu->gpu"): 0,
+              ("ckpt", "gpu->cpu"): ct.write,
+              ("ckpt", "cpu->gpu"): ct.read}
+    for key, want in closed.items():
+        if measured.get(key, 0) != steps * want:
+            errs.append(f"{key[0]}:{key[1]}: measured "
+                        f"{measured.get(key, 0)} != closed form "
+                        f"{steps * want}")
+    ig = (measured.get(("inter_grad", "gpu->cpu"), 0)
+          + measured.get(("inter_grad", "cpu->gpu"), 0))
+    if ig != steps * ct.inter_grad:
+        errs.append(f"inter_grad: measured {ig} != closed form "
+                    f"{steps * ct.inter_grad}")
+    return errs, measured
+
+
+def phase_train(torch, fa, fad, report, cfg, workroot):
+    """GPT-65B-width training through ``OffloadEngine`` on the card;
+    returns (failures, stats). Gates (a) bytes, (b) losses against the
+    in-memory oracle, (c) launches."""
+    import gc
+    import threading
+
+    from repro_torch.core import (ScheduleConfig, init_train_state,
+                                  make_train_step)
+    from repro_torch.core.perfmodel import StorageRatios
+    from repro_torch.data import SyntheticLM
+    from repro_torch.io import IOConfig
+    from repro_torch.models import model as mdl
+    from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
+    from repro_torch.optim import AdamConfig
+
+    # the layer / embedding / head work the executor runs on the card.
+    # Each call is bracketed by CUDA events; the summed card time between
+    # them is the device busy time (an upper bound: it also holds any gap
+    # in which the card waits for the host inside a call)
+    device_fns = ("j_layer_fwd", "j_layer_fwd_res", "j_layer_bwd_res",
+                  "j_embed", "j_head_bwd", "j_embed_bwd", "j_adam_dev")
+    mem = meminfo()
+    disk = shutil.disk_usage(workroot)
+    report(f"host RAM {mem.get('MemTotal', 0) / 2**30:.1f} GiB (available "
+           f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB), disk free "
+           f"{disk.free / 2**30:.1f} GiB at {workroot}")
+    M, MB, S, steps = TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(M * MB, S) for _ in range(steps)]
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    state = offload_state(cfg, params)
+    workdir = tempfile.mkdtemp(prefix="train-", dir=workroot)
+    ocfg = OffloadConfig(schedule="vertical", num_microbatches=M,
+                         micro_batch=MB, seq_len=S, alpha=0.25,
+                         ratios=StorageRatios(0.5, 0.5, 0.5),
+                         param_dtype="bfloat16", prefetch_depth=1,
+                         io=IOConfig(paths=[workdir], chunk_bytes=8 << 20))
+    eng = None
+    adam_s = [0.0]
+    lock = threading.Lock()
+    try:
+        eng = OffloadEngine(cfg, ocfg, 0, workdir, params=state)
+        del state
+        build_s = time.perf_counter() - t0
+        report(f"train engine built in {build_s:.2f} s: {eng.L} layers x "
+               f"{eng.P} params, host {eng.host.nbytes() / 2**30:.2f} GiB, "
+               f"SSD {eng.ssd.nbytes() / 2**30:.2f} GiB")
+        adam = eng.opt_c.adam
+        update = adam.update
+
+        def timed_update(*a, **kw):          # CPU-Adam busy seconds
+            ts = time.perf_counter()
+            update(*a, **kw)
+            with lock:
+                adam_s[0] += time.perf_counter() - ts
+        adam.update = timed_update
+        spans = []                           # (call, start, end)
+
+        def on_device(name, fn):
+            def timed(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+                spans.append((name, *ev))
+                return out
+            return timed
+        for name in device_fns:
+            setattr(eng, name, on_device(name, getattr(eng, name)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.bwd_launches = fad.launches = 0  # path starts
+        losses, step_s = [], []
+        t_run = time.perf_counter()
+        for b in batches:
+            ts = time.perf_counter()
+            losses.append(eng.train_step(b))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+        tf = time.perf_counter()
+        eng.finish()
+        finish_s = time.perf_counter() - tf
+        run_s = time.perf_counter() - t_run
+        launches = (fa.fwd_launches, fa.bwd_launches, fad.launches)  # ends
+        torch.cuda.synchronize()
+        device_by_call = dict.fromkeys(device_fns, 0.0)
+        for name, a, b in spans:
+            device_by_call[name] += a.elapsed_time(b) / 1e3
+        device_s = sum(device_by_call.values())
+        peak = torch.cuda.max_memory_allocated()
+        snap = eng.metrics_snapshot()
+        byte_errs, measured = check_train_bytes(eng, cfg, ocfg, steps)
+        host_peak = eng.host.peak_nbytes
+        P = eng.P
+    finally:
+        if eng is not None:
+            eng.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    report(f"train losses {losses} in {step_s} s/step (finish "
+           f"{finish_s:.2f} s)")
+
+    failures = list(byte_errs)
+    L = cfg.num_layers
+    want = (2 * L * M * steps, L * M * steps, 3 * steps)
+    if launches != want:
+        failures.append(f"launches (K1 fwd, K1 bwd, K2) {launches} != "
+                        f"{want}")
+
+    # (b) the in-memory oracle from the same initial params
+    t_o = time.perf_counter()
+    step = make_train_step(cfg, ScheduleConfig(schedule="vertical",
+                                               num_microbatches=M),
+                           AdamConfig(lr=ocfg.lr))
+    _, opt = init_train_state(cfg, params=params)
+    p, oracle = params, []
+    for b in batches:
+        p, opt, met = step(p, opt, {"tokens": torch.from_numpy(b).cuda()})
+        oracle.append(float(met["loss"]))
+    del p, opt, params, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t_o
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, oracle)]
+    loss_fail = [f"step {i + 1} loss {losses[i]} vs in-memory oracle "
+                 f"{oracle[i]}: rel {r} > {LOSS_RTOL}"
+                 for i, r in enumerate(rel)
+                 if not (r <= LOSS_RTOL and math.isfinite(losses[i]))]
+    failures += loss_fail
+    report(f"in-memory oracle losses {oracle} ({oracle_s:.1f} s): rel diff "
+           f"{rel} (tol {LOSS_RTOL}) -> "
+           f"{'OK' if not loss_fail else 'FAIL'}")
+    report(f"bytes (plan x steps, closed forms): "
+           f"{'OK' if not byte_errs else byte_errs}; launches (K1 fwd, "
+           f"K1 bwd, K2) {launches}, want {want}")
+    s_step = sum(step_s) / len(step_s)
+    stats = {
+        "model": cfg.name, "layers": L, "params_per_layer": P,
+        "micro_batches": M, "micro_batch": MB, "seq_len": S,
+        "alpha": ocfg.alpha, "ratios": [0.5, 0.5, 0.5], "steps": steps,
+        "losses": losses, "oracle_losses": oracle, "loss_rel_diff": rel,
+        "build_s": build_s, "step_s": step_s, "s_per_step": s_step,
+        "finish_s": finish_s, "run_s": run_s,
+        "tokens_per_s": M * MB * S / s_step,
+        "op_seconds": snap["op_seconds"], "stall_s": snap["stall_s"],
+        "phase_time": snap["phase_time"],
+        "lookahead_hit_rate": snap["lookahead"]["hit_rate"],
+        "hint_skips": snap["hint_skips"],
+        "cpu_adam_busy_s": adam_s[0],
+        "cpu_adam_share_of_run": adam_s[0] / run_s,
+        "device_busy_s": device_s,
+        "device_busy_share_of_steps": device_s / sum(step_s),
+        "device_busy_s_by_call": device_by_call,
+        "host_peak_nbytes": host_peak,
+        "max_memory_allocated": peak,
+        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
+                     "k2": launches[2]},
+        "traffic": {f"{c}:{r}": v for (c, r), v in sorted(measured.items())},
+        "host_mem": mem, "disk_free": disk.free,
+    }
+    return failures, stats
+
+
+def phase_train_tiny(torch, report, workroot):
+    """Gates (d) and (e) on gpt-tiny in f32: alpha = 0 and 0.25 bitwise on
+    the card under deterministic algorithms, and the card against the
+    same engine on the CPU within 1e-5 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import StorageRatios
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+    from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
+
+    cfg = get_config("gpt-tiny")
+    params = mdl.init_params(cfg, 1, dtype=torch.float32, device="cpu")
+    data = SyntheticLM(cfg.vocab_size, seed=1)
+    batches = [data.batch(8, 64) for _ in range(3)]
+
+    def run(alpha, device):
+        d = tempfile.mkdtemp(prefix="tiny-", dir=workroot)
+        try:
+            eng = OffloadEngine(cfg, OffloadConfig(
+                num_microbatches=4, micro_batch=2, seq_len=64, alpha=alpha,
+                ratios=StorageRatios(0.5, 0.5, 0.5)), 0, d,
+                params=offload_state(cfg, params), device=device)
+            losses = [eng.train_step(b) for b in batches]
+            eng.finish()
+            eng.close()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return losses
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        l0, la = run(0.0, "cuda"), run(0.25, "cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lc = run(0.0, "cpu")
+    failures = []
+    if l0 != la:
+        failures.append(f"gpt-tiny alpha 0 {l0} != alpha 0.25 {la} on the "
+                        f"card")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(l0, lc))
+    if not worst <= 1e-5:
+        failures.append(f"gpt-tiny card {l0} vs CPU {lc}: rel {worst}")
+    report(f"gpt-tiny f32 train: alpha 0 {l0} == alpha 0.25 {la}: "
+           f"{l0 == la}; card vs CPU {lc}: max rel {worst:.3e} (tol 1e-5: "
+           f"f32 sums in another order on each device) -> "
+           f"{'OK' if not failures else 'FAIL'}")
+    return failures
+
+
+def _kernel_entry(name, source, replaces, launches, rows, headline,
+                  smi, **extra):
+    head = next((r for r in rows if r["shape"] == headline), None)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max((r["max_abs_err"] for r in rows),
+                                default=None)}
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        entry[key] = head[key] if head else None
+    entry.update(at=headline, card=smi, shapes=rows, **extra)
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve",
-                    help="comma list of: kernels, serve")
+    ap.add_argument("--phases", default="kernels,serve,train",
+                    help="comma list of: kernels, serve, train")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -347,6 +812,7 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import fused_adam as fad
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}",
               file=sys.stderr)
@@ -372,18 +838,30 @@ def main() -> int:
             report(f"  {name}: {ln.strip()}")
 
     failures = []
-    rows = []
+    rows, brows, arows = [], [], []
+    wall = {}
+    workroot = os.path.join(ROOT, "_work")
+    os.makedirs(workroot, exist_ok=True)
     # 3. kernels
     if "kernels" in phases:
+        t0 = time.perf_counter()
         rows = phase_kernels(torch, fa, report)
         failures += [f"K1 {r['shape']}: err {r['max_abs_err']} rel_err "
                      f"{r['rel_err']} lse_err {r['lse_max_abs_err']}"
                      for r in rows if not r["ok"]]
+        brows = phase_k1_bwd(torch, fa, report)
+        failures += [f"K1 bwd {r['shape']}: err {r['max_abs_err']} rel_err "
+                     f"{r['rel_err']} deterministic {r['deterministic']}"
+                     for r in brows if not r["ok"]]
+        arows = phase_k2(torch, fad, report)
+        failures += [f"K2 {r['shape']}: err {r['max_abs_err']} two-stage "
+                     f"bitwise {r['two_stage_bitwise']}"
+                     for r in arows if not r["ok"]]
+        wall["kernels"] = time.perf_counter() - t0
     # 4. serve
     stats = {}
     if "serve" in phases:
-        workroot = os.path.join(ROOT, "_work")
-        os.makedirs(workroot, exist_ok=True)
+        t0 = time.perf_counter()
         full = get_config("gpt-65b")
         cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
         report(f"serve model: {full.name} at full width (d_model "
@@ -408,25 +886,63 @@ def main() -> int:
         report("in-memory prefill ms by prompt length: "
                + json.dumps(stats["in_memory_prefill_ms"]))
         report("serve stats: " + json.dumps(stats))
+        wall["serve"] = time.perf_counter() - t0
+    # 5. train
+    tstats = {}
+    if "train" in phases:
+        t0 = time.perf_counter()
+        full = get_config("gpt-65b")
+        cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+        report(f"train model: {full.name} at full width (d_model "
+               f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
+               f"{cfg.d_ff}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
+               f"depth cut {full.num_layers} -> {cfg.num_layers} layers, "
+               f"bf16, vertical, M {TRAIN_M} x {TRAIN_MB} x {TRAIN_S} tokens, "
+               f"alpha 0.25, ratios 0.5/0.5/0.5, {TRAIN_STEPS} steps")
+        f, tstats = phase_train(torch, fa, fad, report, cfg, workroot)
+        failures += f
+        failures += phase_train_tiny(torch, report, workroot)
+        report(f"train ({smi}): {tstats['s_per_step']:.2f} s/step, "
+               f"{tstats['tokens_per_s']:.1f} tokens/s, stall "
+               f"{tstats['stall_s']:.2f} s, phase time "
+               f"{json.dumps(tstats['phase_time'])}, lookahead hit rate "
+               f"{tstats['lookahead_hit_rate']:.3f}, CPU Adam busy "
+               f"{tstats['cpu_adam_busy_s']:.2f} s "
+               f"({100 * tstats['cpu_adam_share_of_run']:.1f} % of the run), "
+               f"device busy {tstats['device_busy_s']:.3f} s "
+               f"({100 * tstats['device_busy_share_of_steps']:.2f} % of the "
+               f"steps), "
+               f"host peak {tstats['host_peak_nbytes'] / 2**30:.2f} GiB, "
+               f"max_memory_allocated "
+               f"{tstats['max_memory_allocated'] / 2**30:.2f} GiB")
+        report("train op seconds: " + json.dumps(tstats["op_seconds"]))
+        report("train stats: " + json.dumps(tstats))
+        wall["train"] = time.perf_counter() - t0
+    report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
         for msg in failures:
             print(f"FAIL: {msg}", file=sys.stderr)
         return 1
 
-    head = next((r for r in rows if r["shape"] == HEADLINE), None)
-    k1 = {"name": "K1 flash_attention_fwd", "route": "cuda",
-          "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
-          "replaces": "src/repro/kernels/flash_attention.py:27",
-          "launches": stats.get("k1_launches", 0),
-          "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
-          "ms": head["ms"] if head else None,
-          "plain_ms": head["plain_ms"] if head else None,
-          "bound_ms": head["bound_ms"] if head else None,
-          "bound_by": head["bound_by"] if head else None,
-          "library_ms": head["library_ms"] if head else None,
-          "at": HEADLINE, "card": smi, "shapes": rows}
-    print(json.dumps({"kernels": [k1]}))
+    tl = tstats.get("launches", {})
+    serve_k1 = stats.get("k1_launches", 0)
+    kernels = [
+        _kernel_entry("K1 flash_attention_fwd",
+                      "src/repro_torch/csrc/flash_attention_fwd.cu",
+                      "src/repro/kernels/flash_attention.py:27",
+                      serve_k1 + tl.get("k1_fwd", 0), rows, HEADLINE, smi,
+                      launches_by_path={"serve": serve_k1,
+                                        "train": tl.get("k1_fwd", 0)}),
+        _kernel_entry("K1 flash_attention_bwd",
+                      "src/repro_torch/csrc/flash_attention_bwd.cu",
+                      "src/repro/models/attention.py:105",
+                      tl.get("k1_bwd", 0), brows, K1B_HEADLINE, smi),
+        _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
+                      "src/repro/kernels/fused_adam.py:27",
+                      tl.get("k2", 0), arows, K2_HEADLINE, smi),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

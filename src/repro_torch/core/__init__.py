@@ -1,6 +1,13 @@
-"""The byte models and the schedule IR the serving slice runs on
-(copies of the reference's ``core.traffic``, ``core.perfmodel`` and
-``core.plan``). The training schedules arrive with the training slice."""
+"""The byte models, the schedule IR (copies of the reference's
+``core.traffic``, ``core.perfmodel`` and ``core.plan``) and the in-memory
+train-step builders (``core.schedules``)."""
+from repro_torch.core.schedules import (  # noqa: F401
+    ScheduleConfig,
+    grads_fn,
+    init_train_state,
+    make_delayed_train_step,
+    make_train_step,
+)
 from repro_torch.core.traffic import (  # noqa: F401
     KVTraffic,
     TrafficBreakdown,

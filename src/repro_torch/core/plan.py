@@ -146,6 +146,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -646,8 +647,9 @@ class PlanCosts:
         """Sizing facts read off a live (single-rank or DP) engine."""
         ocfg = eng.ocfg
         item = eng.dtype.itemsize
-        head_nbytes = 4 * (eng.embed.size + eng.unembed.size
-                           + eng.final_norm.size)
+        head_nbytes = 4 * (math.prod(eng.embed.shape)
+                           + math.prod(eng.unembed.shape)
+                           + math.prod(eng.final_norm.shape))
         return PlanCosts(
             P=eng.P, param_itemsize=item,
             ckpt_elems=ocfg.micro_batch * ocfg.seq_len * eng.cfg.d_model,

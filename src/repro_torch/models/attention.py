@@ -1,9 +1,10 @@
 """Attention: GQA (+qk-norm, RoPE) with a KV cache, on K1.
 
-``flash_attention`` is the prefill path: on the card it launches the
-Hopper kernel of ``kernels.flash_attention`` (K1), on the CPU its plain
-version. Decode attends one query position against the whole cache in
-plain torch (the reference has no kernel for it). Sliding-window
+``flash_attention`` is the prefill and training path, through the
+autograd function ``kernels.flash_attention.FlashAttention``: on the
+card its forward and backward launch K1's Hopper kernels, on the CPU
+their plain versions. Decode attends one query position against the
+whole cache in plain torch (the reference has no kernel for it). Sliding-window
 (banded) layers and MLA come with a later slice.
 
 Caches are updated IN PLACE: where the reference builds a new cache
@@ -31,11 +32,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Hq,Sq,hd); k,v: (B,Hk,Skv,hd). Returns (B,Hq,Sq,hd).
 
-    GQA is handled by grouping Hq into Hk groups (no K/V repeat)."""
-    out, _ = fa.flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=window, q0=q0, scale=scale)
-    return out
+    GQA is handled by grouping Hq into Hk groups (no K/V repeat).
+    Differentiable: the backward is K1's."""
+    return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal, window, q0, scale)
 
 
 def decode_attention(q, k, v, *, kv_pos, pos: int,
@@ -78,20 +78,20 @@ def gqa_init(generator, cfg, dtype=torch.bfloat16, device=None):
 
 def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
               cache: Optional[KVCache] = None, pos: Optional[int] = None,
-              mode: str = "prefill", causal: bool = True
+              mode: str = "train", causal: bool = True
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """x: (B,S,d). mode: prefill | decode.
+    """x: (B,S,d). mode: train | prefill | decode.
 
     decode: x is (B,1,d), ``pos`` is the position, ``cache`` is updated
-    in place. prefill: fills ``cache`` (when given) in place."""
+    in place. prefill: fills ``cache`` (when given) in place. train: no
+    cache (differentiable)."""
     if window is not None:
         raise NotImplementedError(
             "sliding-window (banded) attention is ported with the "
             "off-main-path families slice (ROADMAP § Modules to port)")
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"gqa_apply mode {mode!r}: training arrives with the training "
-            "slice")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"gqa_apply mode {mode!r} is not train, prefill "
+                         "or decode")
     B, S, d = x.shape
     Hq, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, Hq, hd)
@@ -122,7 +122,7 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
                              pos=slot)
     else:
         o = flash_attention(q, k, v, causal=causal)
-        if cache is not None:
+        if mode == "prefill" and cache is not None:
             cache.k[:, :, :S] = k.to(cache.k.dtype)
             cache.v[:, :, :S] = v.to(cache.v.dtype)
             cache.slot_pos[:S] = torch.arange(S, dtype=torch.int32,

@@ -114,10 +114,11 @@ def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
                                            device=device)}
 
 
-def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "prefill",
+def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                 cache=None, pos: Optional[int] = None):
-    """Pre-norm residual block (attention + MLP). Returns
-    (x, cache, aux_loss); ``cache`` is updated in place."""
+    """Pre-norm residual block (attention + MLP). ``mode``: train |
+    prefill | decode. Returns (x, cache, aux_loss); ``cache`` is updated
+    in place (train takes none)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)

@@ -1,9 +1,18 @@
-"""The causal LM for serving: params, caches, prefill and decode.
+"""The causal LM: params, the training loss, caches, prefill and decode.
 
 Layer execution is ``prefix -> period x n -> suffix`` with the period's
 parameters and caches stacked along a leading axis (the reference's
 layout, so trees convert leaf by leaf); the port loops over the period
 in Python where the reference runs ``lax.scan``.
+
+Training (``loss_fn``) rematerialises as the reference does: with
+``remat=True`` each prefix/suffix block and each period body runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``), so backward
+recomputes the layer from its input — the paper's per-layer activation
+checkpoint; with ``remat=False`` autograd keeps every activation. The
+loss's logits are formed a chunk of positions at a time, each chunk
+checkpointed, so the (B, S, V) tensor never exists. Loss and gradients
+do not depend on ``remat``.
 
 Caches and the serve engine's parameter skeleton are updated IN PLACE:
 ``set_cache_unit`` copies a unit's tensors into the slots of the tree it
@@ -16,10 +25,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
+
+AUX_COEF = 0.01  # router load-balance coefficient
 
 
 def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
@@ -66,31 +78,51 @@ def _period_slice(stacked, i: int):
     return tree.tree_map(lambda a: a[i], stacked)
 
 
-def _run_stack(params, x, cfg, plan, *, mode, caches, pos=None):
-    """Run prefix + periods + suffix, updating ``caches`` in place.
-    Returns (x, caches, aux)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"_run_stack mode {mode!r}: training arrives with the training "
-            "slice")
+def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
+               remat=False):
+    """Run prefix + periods + suffix. ``caches`` (prefill/decode) are
+    updated in place; ``remat`` (train) checkpoints each block / period
+    body. Returns (x, caches, aux)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"_run_stack mode {mode!r} is not train, prefill "
+                         "or decode")
+    ckpt = mode == "train" and remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def one(bp, x, kind, cache):
+        if ckpt:
+            return checkpoint(
+                lambda p_, x_: blk.block_apply(p_, x_, cfg, kind,
+                                               mode="train"),
+                bp, x, use_reentrant=False)
+        return blk.block_apply(bp, x, cfg, kind, mode=mode, cache=cache,
+                               pos=pos)
+
+    def period(pparams, x, pcache):
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, kind in enumerate(plan.period):
+            x, _, aj = blk.block_apply(
+                pparams[f"sub{j}"], x, cfg, kind, mode=mode,
+                cache=pcache[f"sub{j}"] if pcache else None, pos=pos)
+            a = a + aj
+        return x, a
+
     for j, kind in enumerate(plan.prefix):
-        x, _, a = blk.block_apply(params["prefix"][j], x, cfg, kind,
-                                  mode=mode, cache=caches["prefix"][j],
-                                  pos=pos)
+        x, _, a = one(params["prefix"][j], x, kind,
+                      caches["prefix"][j] if caches else None)
         aux = aux + a
     for i in range(plan.n_periods):
         pparams = _period_slice(params["periods"], i)
-        pcache = _period_slice(caches["periods"], i)
-        for j, kind in enumerate(plan.period):
-            x, _, a = blk.block_apply(pparams[f"sub{j}"], x, cfg, kind,
-                                      mode=mode, cache=pcache[f"sub{j}"],
-                                      pos=pos)
-            aux = aux + a
+        pcache = _period_slice(caches["periods"], i) if caches else None
+        if ckpt:
+            x, a = checkpoint(lambda p_, x_: period(p_, x_, None), pparams,
+                              x, use_reentrant=False)
+        else:
+            x, a = period(pparams, x, pcache)
+        aux = aux + a
     for j, kind in enumerate(plan.suffix):
-        x, _, a = blk.block_apply(params["suffix"][j], x, cfg, kind,
-                                  mode=mode, cache=caches["suffix"][j],
-                                  pos=pos)
+        x, _, a = one(params["suffix"][j], x, kind,
+                      caches["suffix"][j] if caches else None)
         aux = aux + a
     return x, caches, aux
 
@@ -102,6 +134,79 @@ def _embed_inputs(params, cfg, batch):
     if cfg.scale_embed:
         x = (x.float() * float(cfg.d_model) ** 0.5).to(x.dtype)
     return x
+
+
+def _later_slice(cfg):
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.family!r} training (image/encoder frontends) is ported "
+            "with the off-main-path families slice")
+
+
+def forward_hidden(params, cfg, batch, *, remat: bool = True):
+    """Full-batch forward to final hidden states. Returns (hidden, aux)."""
+    _later_slice(cfg)
+    plan = blk.build_plan(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    x, _, aux = _run_stack(params, x, cfg, plan, mode="train", remat=remat)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over sequence so (B,chunk,V) is the only logits buffer)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h, unembed, labels, weights):
+    """(sum of weighted token cross-entropies, sum of weights)."""
+    logits = (h @ unembed).float()                        # (B,c,V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * weights), torch.sum(weights)
+
+
+def chunked_xent(hidden, unembed, labels, weights, chunk: int = 0):
+    """Mean token cross-entropy; logits are formed ``chunk`` positions at
+    a time (each chunk checkpointed) so the (B,S,V) tensor never exists.
+    ``chunk=0`` picks the reference's size."""
+    B, S, _ = hidden.shape
+    V = unembed.shape[-1]
+    if chunk <= 0:
+        by_bytes = max(1, int((64 << 20) / max(B * V, 1)))
+        chunk = min(S, max(S // 32, by_bytes))
+    while S % chunk != 0:
+        chunk -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = checkpoint(_xent_chunk, hidden[:, sl], unembed, labels[:, sl],
+                          weights[:, sl], use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def labels_and_weights(cfg, batch):
+    """Next-token labels/weights over the full decoder sequence."""
+    _later_slice(cfg)
+    tokens = batch["tokens"]
+    B, St = tokens.shape
+    labels = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,
+                                                   device=tokens.device)], 1)
+    weights = torch.cat([torch.ones((B, St - 1), dtype=torch.float32,
+                                    device=tokens.device),
+                         torch.zeros((B, 1), dtype=torch.float32,
+                                     device=tokens.device)], 1)
+    return labels, weights
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Mean next-token cross-entropy (+ the router aux loss) of ``batch``
+    (``{"tokens": (B, S) int}``) under ``params``; differentiable."""
+    hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
+    labels, weights = labels_and_weights(cfg, batch)
+    loss = chunked_xent(hidden, unembed_matrix(params, cfg), labels, weights)
+    return loss + AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------

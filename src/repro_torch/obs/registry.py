@@ -1,6 +1,7 @@
-"""The serve engine's versioned metrics snapshot (the serving part of
-the reference's ``obs.registry``: ``SNAPSHOT_VERSION``, ``_jsonable``
-and ``build_serve_snapshot``, with the same keys and JSON discipline).
+"""The engines' versioned metrics snapshots (the reference's
+``obs.registry``: ``SNAPSHOT_VERSION``, ``_jsonable``, ``build_snapshot``
+for the offload engine and ``build_serve_snapshot`` for the serve
+engine, with the same keys and JSON discipline).
 """
 from __future__ import annotations
 
@@ -26,6 +27,49 @@ def _jsonable(obj):
         return int(obj)          # numpy integer scalars
     except (TypeError, ValueError):
         return obj
+
+
+def build_snapshot(eng) -> Dict[str, object]:
+    """The offload engine's flat snapshot, in the reference's schema
+    (per-rank lists, one rank here):
+
+    * identity — ``version``, ``schedule``, ``ranks``, ``steps``,
+      ``act_policy``
+    * bytes — ``traffic`` (``"category:route" -> bytes``)
+    * storage — ``io`` / ``io_depth``, ``host_peak_nbytes`` /
+      ``host_nbytes``, ``bounds`` (``None``: single rank)
+    * time — ``op_seconds``, ``stall_s``, ``phase_time``
+    * lookahead — ``lookahead``, ``hint_skips`` / ``act_skips`` /
+      ``act_fallbacks``
+    * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
+    * spans — ``trace`` (``Tracer.summary()``)
+    """
+    from repro_torch.core.plan import PlanCosts
+    from repro_torch.offload.executor import stall_seconds
+
+    snap = {
+        "version": SNAPSHOT_VERSION,
+        "schedule": eng.ocfg.schedule,
+        "ranks": 1,
+        "steps": int(eng.step_num),
+        "act_policy": eng.act_policy,
+        "traffic": [dict(eng.meter.snapshot())],
+        "io": [eng.ioe._collect_stats()],
+        "io_depth": [eng.ioe.depth()],
+        "host_peak_nbytes": [eng.host.peak_nbytes],
+        "host_nbytes": [eng.host.nbytes()],
+        "bounds": None,
+        "op_seconds": dict(eng.op_seconds),
+        "stall_s": stall_seconds(eng.op_seconds),
+        "phase_time": dict(eng.phase_time),
+        "lookahead": eng._lookahead_stats(),
+        "hint_skips": int(eng.hint_skips),
+        "act_skips": int(eng.act_skips),
+        "act_fallbacks": int(eng.act_fallbacks),
+        "plan_costs": dataclasses.asdict(PlanCosts.from_engine(eng)),
+        "trace": eng.tracer.summary(),
+    }
+    return _jsonable(snap)
 
 
 def build_serve_snapshot(eng) -> Dict[str, object]:

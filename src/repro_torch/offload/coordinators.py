@@ -1,12 +1,25 @@
-"""The coordinators of the serving path (GreedySnake §5, as the
-reference's ``offload.coordinators``):
+"""The coordinators of GreedySnake §5 (as the reference's
+``offload.coordinators``):
 
-* ParameterCoordinator — per-unit params in tiered storage; two-stage
-  prefetch (§4.2): the async engine request performs the SSD->host stage
-  (scheduled by the plan's ``PREFETCH`` hints), the host->device copy
+* ParameterCoordinator — per-layer (training) or per-unit (serving)
+  params in tiered storage; two-stage prefetch (§4.2): the async engine
+  request performs the SSD->host stage (scheduled by the plan's
+  ``PREFETCH`` hints, after the layer's α gate), the host->device copy
   happens at consumption on the caller's thread, and the device copy is
   dropped after use. ``reset()`` cancels in-flight fetches via the I/O
   engine's cancellation API at a schedule boundary.
+* InterLayerTensorCoordinator — activation checkpoints (forward) and
+  inter-layer gradients (backward). Checkpoints are written to host and
+  the (1-x_c) tail streamed to SSD; the forward consumer reads the host
+  cache, after which the tail is dropped from host; the backward
+  recompute re-reads the tail from SSD (asynchronously ahead of the
+  consumer when a ``PREFETCH_CKPT`` hint fired). Inter-layer gradients
+  stay on the host (never SSD).
+* OptimizerStepCoordinator — master/momentum/variance in tiered f32
+  vectors and the host Adam (``CpuAdam``); the (1-α) fraction updates
+  right after a layer's backward (an engine request, overlapped), the α
+  fraction is flushed at the plan epilogue and gates the layer's next
+  forward fetch (§4.4).
 * KVBlockCoordinator — the serving-time KV-cache block stream: an
   evicted request's per-unit cache tree is flattened to one byte payload
   through torch byte views, padded to a whole number of fixed-size blocks
@@ -16,18 +29,21 @@ reference's ``offload.coordinators``):
   tree structure and each leaf's torch dtype and shape are kept in
   coordinator memory, so padding never leaks into the rebuilt tree.
 
-Both count lookahead hits/misses (``la_hits`` / ``la_misses``) and, when
+Each counts lookahead hits/misses (``la_hits`` / ``la_misses``) and, when
 the engine attaches its ``repro_torch.obs.Tracer`` (the ``tracer``
-attribute), record one lifecycle span per hinted prefetch. The
-activation, inter-layer and optimizer coordinators of the training
-path come with the training slice.
+attribute), records one lifecycle span per hinted prefetch.
+
+Device tensors cross to the host only on the caller's (executor's)
+thread, before any ``engine.submit``: no engine worker touches CUDA. The
+activation-spill stream (``ActivationCoordinator``) comes with a later
+slice.
 """
 from __future__ import annotations
 
 import math
 import time
 from concurrent.futures import CancelledError
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +51,10 @@ import torch
 from repro_torch import tree
 from repro_torch.io import IOEngine, IOPriority, IORequest
 from repro_torch.obs.tracer import CAT_HINT
-from repro_torch.offload.stores import HostStore, SSDStore, TieredVector, TrafficMeter
+from repro_torch.offload.stores import (HostStore, SSDStore, TieredVector,
+                                        TrafficMeter, host_cast, to_device,
+                                        to_host)
+from repro_torch.optim.cpu_adam import CpuAdam
 
 
 def _hint_issue(coord, key):
@@ -111,36 +130,71 @@ def tree_from_bytes(buf: torch.Tensor, treedef, metas):
 
 
 class ParameterCoordinator:
+    """``dtype`` is the torch type of the vectors' elements on the device
+    (the host holds bf16 as ``uint16`` bits; the serve engine's unit
+    blobs are ``torch.uint8``)."""
+
     def __init__(self, vectors: List[TieredVector], meter: TrafficMeter,
-                 engine: IOEngine, device="cpu"):
+                 engine: IOEngine, dtype: torch.dtype, device="cpu"):
         self.vectors = vectors
         self.meter = meter
         self.engine = engine
         self.device = torch.device(device)
+        self.dtype = dtype
         self._futures: Dict[int, IORequest] = {}
+        self._gate: Dict[int, Callable[[], None]] = {}
+        self._gate_ready: Dict[int, Callable[[], bool]] = {}
         self.la_hits = 0        # get() found a completed prefetch
         self.la_misses = 0      # get() had to wait (or submit) the fetch
         self.tracer = None      # engine-attached repro_torch.obs.Tracer
         self._hint_t: Dict[int, float] = {}
 
+    def set_gate(self, l: int, fn: Callable[[], None],
+                 ready: Optional[Callable[[], bool]] = None):
+        """Barrier that must complete before layer l's params are read
+        (orders the α-delayed optimizer flush before the fetch).
+
+        ``ready`` is the deadlock guard for HINTED fetches: it returns
+        True only when waiting on the gate is bounded (the gating work is
+        running or done, not still queued). A prefetch hint whose gate is
+        not ready is skipped — otherwise gated fetch bodies, outranking
+        the queued flushes, could occupy every request worker and leave
+        none to run the flushes they wait on. A consumer-driven ``get``
+        ignores ``ready``: the executor blocks instead of a worker."""
+        self._gate[l] = fn
+        if ready is not None:
+            self._gate_ready[l] = ready
+
+    def _fetch(self, l: int) -> np.ndarray:
+        """SSD -> host stage only: wait the α gate, then assemble the host
+        vector. The host -> device copy stays in :meth:`get` on the
+        consumer thread."""
+        gate = self._gate.pop(l, None)
+        self._gate_ready.pop(l, None)
+        if gate is not None:
+            gate()
+        return self.vectors[l].read()              # meters ssd->cpu
+
     def prefetch(self, l: int, consumer: bool = False):
-        """Submit unit l's async SSD -> host fetch (the two-stage §4.2
-        pipeline's first stage). The host -> device copy stays in
-        :meth:`get` on the consumer thread — doing it on an engine worker
-        would steal CPU from the overlapped compute the lookahead exists
-        to protect."""
+        """Submit layer l's async host fetch. A HINT (``consumer=False``)
+        is refused while l's gate is not ready (see :meth:`set_gate`);
+        the consumer path always submits."""
         if not (0 <= l < len(self.vectors)) or l in self._futures:
             return
+        if not consumer:
+            ready = self._gate_ready.get(l)
+            if l in self._gate and ready is not None and not ready():
+                return
         v = self.vectors[l]
         self._futures[l] = self.engine.submit(
-            v.read, priority=IOPriority.PARAM_FETCH, category="param",
-            route="ssd->cpu", nbytes=v.n * v.dtype.itemsize)
+            lambda l=l: self._fetch(l), priority=IOPriority.PARAM_FETCH,
+            category="param", route="ssd->cpu", nbytes=v.n * v.dtype.itemsize)
         if not consumer:
             _hint_issue(self, l)
 
     def get(self, l: int) -> torch.Tensor:
-        """Unit l's vector on the device: waits for (or submits) the host
-        fetch, then copies it host -> device."""
+        """Layer l's vector on the device: waits for (or submits) the
+        host fetch, then copies it host -> device."""
         if l not in self._futures:
             self.prefetch(l, consumer=True)
             self.la_misses += 1
@@ -151,7 +205,7 @@ class ParameterCoordinator:
             self.la_misses += 1
             _hint_settle(self, "param", l, "late")
         host_arr = self._futures.pop(l).result()
-        dev = torch.from_numpy(host_arr).to(self.device)   # "PCIe" copy
+        dev = to_device(host_arr, self.dtype, host_arr.shape, self.device)
         _xfer(self.meter, self.engine, "param", "cpu->gpu", host_arr.nbytes)
         return dev
 
@@ -167,6 +221,396 @@ class ParameterCoordinator:
             _hint_settle(self, "param", l, "cancelled")
             _cancel_or_drain(req)
         self._futures.clear()
+
+    def clear_gates(self):
+        """Drop every armed α gate. Not part of :meth:`reset`: the
+        ``RESET_PARAMS`` plan op calls ``reset()`` mid-step between
+        waves, where the armed gates must survive to order the next
+        wave's fetches after their optimizer tails. Only the executor's
+        mid-step failure unwind clears them (the tails are abandoned
+        with the step; a stale gate would re-raise its fault or deadlock
+        the next step's first fetch)."""
+        self._gate.clear()
+        self._gate_ready.clear()
+
+
+class InterLayerTensorCoordinator:
+    """Checkpoints: (layer, mb) -> host head + SSD tail. ``x_cpu`` is the
+    host-resident fraction of each checkpoint's elements; the tail
+    beyond k goes to SSD. Tensors come back on ``device``."""
+
+    def __init__(self, x_cpu: float, host: HostStore, ssd: SSDStore,
+                 meter: TrafficMeter, engine: IOEngine, device="cpu"):
+        self.x = x_cpu
+        self.host = host
+        self.ssd = ssd
+        self.meter = meter
+        self.engine = engine
+        self.device = torch.device(device)
+        self._pending: Dict[Tuple[str, int, int], IORequest] = {}
+        self._shapes: Dict[Tuple[str, int, int], tuple] = {}
+        self._device_kept: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._prefetched: Dict[Tuple[int, int], IORequest] = {}  # bwd tails
+        self.la_hits = 0        # bwd tail was prefetched and had landed
+        self.la_misses = 0      # bwd tail came off the SSD synchronously
+        self.tracer = None      # engine-attached repro_torch.obs.Tracer
+        self._hint_t: Dict[Tuple[int, int], float] = {}
+
+    def _key(self, kind: str, l: int, m: int) -> str:
+        return f"{kind}:{l}:{m}"
+
+    def _dev(self, arr: np.ndarray, key) -> torch.Tensor:
+        shape, dtype = self._shapes[key]
+        return to_device(arr, dtype, shape, self.device)
+
+    # ---- forward checkpoints ----
+    def put_ckpt(self, l: int, m: int, y_dev: torch.Tensor,
+                 keep_on_device: bool = False):
+        """Offload layer-l input checkpoint for micro-batch m."""
+        if keep_on_device:
+            self._device_kept[(l, m)] = y_dev
+        arr = to_host(y_dev).reshape(-1)
+        _xfer(self.meter, self.engine, "ckpt", "gpu->cpu", arr.nbytes)
+        self._shapes[("c", l, m)] = (tuple(y_dev.shape), y_dev.dtype)
+        k = int(round(self.x * arr.size))
+        name = self._key("c", l, m)
+        self.host.put(name + ":h", arr[:k].copy())
+        # the tail stays cached on the host until the forward consumes it
+        self.host.put(name + ":tail", arr[k:].copy())
+        if k < arr.size:
+            old = self._pending.pop(("c", l, m), None)
+            if old is not None:
+                old.result()    # never two in-flight spills of one name
+            # spill via the staging pool: lowest priority, cancellable
+            self._pending[("c", l, m)] = self.ssd.write_async(
+                name + ":s", arr[k:], "ckpt")
+
+    def get_ckpt_fwd(self, l: int, m: int) -> torch.Tensor:
+        """Next-layer forward input: device-kept or host cache (no SSD
+        read). Drops the host tail afterwards (reclaimed, §4.4)."""
+        if (l, m) in self._device_kept:
+            return self._device_kept.pop((l, m))
+        # §4.2 device-slot discipline: a kept boundary checkpoint is only
+        # useful to the boundary's FIRST consumer; a consumer for another
+        # micro-batch means the order was perturbed, so the kept copy is
+        # evicted (its host cache exists) and re-read like any other.
+        for k in [k for k in self._device_kept if k[0] == l]:
+            del self._device_kept[k]
+        name = self._key("c", l, m)
+        head = self.host.get(name + ":h")
+        tail = self.host.pop(name + ":tail")   # consume host cache
+        arr = np.concatenate([head, tail])
+        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes)
+        return self._dev(arr, ("c", l, m))
+
+    def prefetch_bwd(self, l: int, m: int):
+        """``PREFETCH_CKPT`` hint: start the backward tail's SSD re-read
+        now (ckpt priority). No-op when the payload cannot need an SSD
+        read — unknown key, host-cached tail, fully host-resident head —
+        or when the spill itself is still in flight (a request body must
+        never wait on another request)."""
+        key = (l, m)
+        if key in self._prefetched or ("c", l, m) not in self._shapes:
+            return
+        name = self._key("c", l, m)
+        if name + ":tail" in self.host or name + ":h" not in self.host:
+            return
+        head = self.host.get(name + ":h")
+        n = math.prod(self._shapes[("c", l, m)][0])
+        if head.size >= n:
+            return
+        wr = self._pending.get(("c", l, m))
+        if wr is not None and not wr.done():
+            return
+        self._prefetched[key] = self.engine.submit(
+            lambda: self.ssd.read(name + ":s", "ckpt"),
+            priority=IOPriority.CKPT_SPILL, category="ckpt",
+            route="ssd->cpu",
+            nbytes=(n - head.size) * head.dtype.itemsize)
+        _hint_issue(self, key)
+
+    def get_ckpt_bwd(self, l: int, m: int) -> torch.Tensor:
+        """Backward recompute input: host head + SSD tail (prefetched by
+        a ``PREFETCH_CKPT`` hint when the lookahead pass placed one)."""
+        self._device_kept.pop((l, m), None)
+        name = self._key("c", l, m)
+        req = self._pending.pop(("c", l, m), None)
+        if req is not None:
+            req.result()
+        pre = self._prefetched.pop((l, m), None)
+        head = self.host.get(name + ":h")
+        n = math.prod(self._shapes[("c", l, m)][0])
+        if head.size < n:
+            if name + ":tail" in self.host:      # never trimmed (x=1 case)
+                tail = self.host.get(name + ":tail")
+            elif pre is not None:
+                hit = pre.done()     # evaluate once: it can flip mid-read
+                self.la_hits += hit
+                self.la_misses += not hit
+                _hint_settle(self, "ckpt", (l, m), "hit" if hit else "late")
+                tail = pre.result()
+                pre = None
+            else:
+                self.la_misses += 1
+                tail = self.ssd.read(name + ":s", "ckpt")
+            arr = np.concatenate([head, tail])
+        else:
+            arr = head
+        if pre is not None:          # prefetched but unused (host-cached)
+            _hint_settle(self, "ckpt", (l, m), "unused")
+            _cancel_or_drain(pre)
+        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes)
+        return self._dev(arr, ("c", l, m))
+
+    def wait_pending(self):
+        """Drain all outstanding checkpoint spills (engine teardown)."""
+        for req in list(self._pending.values()):
+            try:
+                req.result()
+            except CancelledError:
+                pass
+        self._pending.clear()
+
+    def clear(self):
+        """Abandon every checkpoint / inter-layer gradient this
+        coordinator tracks: release device-kept tensors, cancel or drain
+        in-flight spills (swallowing their errors — the caller is already
+        unwinding), and drop the host-resident pieces. The plan
+        executor's mid-step failure path."""
+        self._device_kept.clear()
+        for req in list(self._pending.values()):
+            _cancel_or_drain(req)
+        self._pending.clear()
+        for key, req in list(self._prefetched.items()):
+            _hint_settle(self, "ckpt", key, "cancelled")
+            _cancel_or_drain(req)
+        self._prefetched.clear()
+        for kind, l, m in list(self._shapes):
+            name = self._key(kind, l, m)
+            keys = ([name + ":h", name + ":tail"] if kind == "c"
+                    else [name])
+            for key in keys:
+                if key in self.host:
+                    self.host.pop(key)
+        self._shapes.clear()
+
+    def drop_ckpt(self, l: int, m: int):
+        # A ckpt consumed only via get_ckpt_fwd (the head layer) still has
+        # its SSD spill in flight: drain it so no orphan write can race a
+        # next-step spill of the same name and counters stay deterministic.
+        self._device_kept.pop((l, m), None)
+        pre = self._prefetched.pop((l, m), None)
+        if pre is not None:
+            _hint_settle(self, "ckpt", (l, m), "cancelled")
+            _cancel_or_drain(pre)
+        req = self._pending.pop(("c", l, m), None)
+        if req is not None:
+            req.result()
+        name = self._key("c", l, m)
+        for key in (name + ":h", name + ":tail"):
+            if key in self.host:
+                self.host.pop(key)
+
+    # ---- inter-layer gradients (backward; host only, §4.3) ----
+    def put_grad(self, l: int, m: int, dx_dev: torch.Tensor,
+                 keep_on_device: bool = False):
+        if keep_on_device:
+            self._device_kept[(-l - 1, m)] = dx_dev
+            return
+        self._spill_grad(l, m, dx_dev)
+
+    def _spill_grad(self, l: int, m: int, dx_dev: torch.Tensor):
+        arr = to_host(dx_dev)
+        _xfer(self.meter, self.engine, "inter_grad", "gpu->cpu", arr.nbytes)
+        self._shapes[("g", l, m)] = (tuple(dx_dev.shape), dx_dev.dtype)
+        self.host.put(self._key("g", l, m), arr)
+
+    def get_grad(self, l: int, m: int) -> torch.Tensor:
+        if (-l - 1, m) in self._device_kept:
+            return self._device_kept.pop((-l - 1, m))
+        # Out-of-order consumer: a kept inter-layer gradient was never
+        # written to host (that is the whole saving), so losing the
+        # device slot forces the spill the alternating order §4.2 avoids.
+        for k in [k for k in self._device_kept if k[0] == -l - 1]:
+            self._spill_grad(l, k[1], self._device_kept.pop(k))
+        arr = self.host.pop(self._key("g", l, m))
+        _xfer(self.meter, self.engine, "inter_grad", "cpu->gpu", arr.nbytes)
+        return self._dev(arr, ("g", l, m))
+
+
+class OptimizerStepCoordinator:
+    """Per-layer Adam over tiered f32 state vectors with α-delay. Each
+    layer's update runs as an OPTIMIZER_STATE-priority engine request:
+    its tiered-vector reads/writes become chunked channel ops that yield
+    to parameter fetches on the same SSD paths. The low-precision copy
+    written back to the parameter tier is ``param_dtype`` (a torch type;
+    bf16 rounds to nearest even on the host, :func:`host_cast`)."""
+
+    def __init__(self, masters: List[TieredVector], ms: List[TieredVector],
+                 vs: List[TieredVector], params: List[TieredVector],
+                 host: HostStore, meter: TrafficMeter,
+                 engine: IOEngine, adam: CpuAdam, alpha: float,
+                 param_dtype: torch.dtype = torch.bfloat16):
+        self.masters, self.ms, self.vs = masters, ms, vs
+        self.params = params
+        self.host = host
+        self.meter = meter
+        self.engine = engine
+        self.adam = adam
+        self.alpha = alpha
+        self.param_dtype = param_dtype
+        self._early_futs: Dict[int, IORequest] = {}
+        self._late_futs: Dict[int, IORequest] = {}
+        self._late_pre: Dict[int, IORequest] = {}   # PREFETCH_OPT reads
+        self.la_hits = 0        # flush_late consumed a landed prefetch
+        self.la_misses = 0      # flush_late read the α-tail itself
+        self.tracer = None      # engine-attached repro_torch.obs.Tracer
+        self._hint_t: Dict[int, float] = {}
+
+    def _k_early(self, l: int) -> int:
+        return int(round((1.0 - self.alpha) * self.masters[l].n))
+
+    def prefetch_late(self, l: int):
+        """``PREFETCH_OPT`` hint: start layer l's α-tail state reads
+        (master/m/v of [k_early, n)) now, so the next ``flush_late`` only
+        runs the Adam segment and the writes. Value-safe whenever the
+        previous flush of l has completed (the α gate orders it before
+        l's forward fetch) — the concurrent early segment only writes the
+        disjoint [0, k_early) ranges. Moves the reads earlier, never
+        changes them."""
+        if l in self._late_pre:
+            return
+        n = self.masters[l].n
+        k = self._k_early(l)
+        if k >= n:
+            return
+
+        def work():
+            return (self.masters[l].read_range(k, n),
+                    self.ms[l].read_range(k, n),
+                    self.vs[l].read_range(k, n))
+
+        self._late_pre[l] = self.engine.submit(
+            work, priority=IOPriority.OPTIMIZER_STATE, category="opt",
+            route="ssd->cpu", nbytes=3 * (n - k) * 4)
+        _hint_issue(self, l)
+
+    def submit_early(self, l: int, g_dev: torch.Tensor, step: int):
+        """After layer l's backward: copy the grads to the host (here, on
+        the caller's thread), update the (1-α) fraction in an engine
+        request, retain the α fraction's grads on the host."""
+        g = g_dev.detach().float().cpu().numpy()
+        _xfer(self.meter, self.engine, "grad", "gpu->cpu", g.nbytes)
+
+        def work():
+            n = self.masters[l].n
+            k = self._k_early(l)
+            if k > 0:
+                mast = self.masters[l].read_range(0, k)
+                m_ = self.ms[l].read_range(0, k)
+                v_ = self.vs[l].read_range(0, k)
+                self.adam.update(mast, m_, v_, g[:k], step)
+                self.masters[l].write_seg(mast, 0)
+                self.ms[l].write_seg(m_, 0)
+                self.vs[l].write_seg(v_, 0)
+                self.params[l].write_seg(host_cast(mast, self.param_dtype), 0)
+            if k < n:
+                self.host.put(f"pending_grad:{l}", g[k:].copy())
+
+        self._early_futs[l] = self.engine.submit(
+            work, priority=IOPriority.OPTIMIZER_STATE, category="opt",
+            route="cpu->ssd", nbytes=g.nbytes)
+
+    def flush_late(self, l: int, step: int):
+        """Flush the remaining α fraction (gate-ordered before layer l's
+        next forward fetch). Consumes a ``prefetch_late`` hint's state
+        reads when one landed; a still-queued hint is cancelled (no bytes
+        moved) and the flush reads the tail itself, so the byte counters
+        are hint-invariant either way."""
+        f = self._early_futs.pop(l, None)
+        if f is not None:
+            f.result()
+        pre = self._late_pre.pop(l, None)
+        n = self.masters[l].n
+        k = self._k_early(l)
+        key = f"pending_grad:{l}"
+        if k >= n or key not in self.host:
+            if pre is not None:
+                _hint_settle(self, "opt", l, "unused")
+                _cancel_or_drain(pre)
+            return
+        g_tail = self.host.pop(key)
+        if pre is not None:
+            if pre.done():
+                self.la_hits += 1
+                _hint_settle(self, "opt", l, "hit")
+            elif pre.cancel():
+                pre = None           # never started: read synchronously
+                self.la_misses += 1
+                _hint_settle(self, "opt", l, "cancelled")
+            else:
+                self.la_misses += 1  # running: its bytes are in flight
+                _hint_settle(self, "opt", l, "late")
+        else:
+            self.la_misses += 1
+
+        def work():
+            if pre is not None:
+                # running-or-done by construction (a queued hint was
+                # cancelled above), so this wait is bounded
+                mast, m_, v_ = pre.result()
+            else:
+                mast = self.masters[l].read_range(k, n)
+                m_ = self.ms[l].read_range(k, n)
+                v_ = self.vs[l].read_range(k, n)
+            self.adam.update(mast, m_, v_, g_tail, step)
+            self.masters[l].write_seg(mast, k)
+            self.ms[l].write_seg(m_, k)
+            self.vs[l].write_seg(v_, k)
+            self.params[l].write_seg(host_cast(mast, self.param_dtype), k)
+
+        self._late_futs[l] = self.engine.submit(
+            work, priority=IOPriority.OPTIMIZER_STATE, category="opt",
+            route="cpu->ssd", nbytes=g_tail.nbytes)
+
+    def wait_late(self, l: int):
+        f = self._late_futs.pop(l, None)
+        if f is not None:
+            f.result()
+
+    def late_settled(self, l: int) -> bool:
+        """Is waiting on layer l's late flush bounded right now — no flush
+        outstanding, or its request already running/done (never still
+        queued)? The α-gate readiness probe for hinted fetches."""
+        f = self._late_futs.get(l)
+        return f is None or f.done() or f.running()
+
+    def wait_all(self):
+        for l, f in list(self._late_pre.items()):
+            _hint_settle(self, "opt", l, "cancelled")
+            _cancel_or_drain(f)     # an orphaned hint's error is moot
+        self._late_pre.clear()
+        for d in (self._early_futs, self._late_futs):
+            for f in list(d.values()):
+                f.result()
+            d.clear()
+
+    def clear(self):
+        """Abandon every outstanding flush after a failed step:
+        cancel-or-drain all futures and drop retained α-tail gradients,
+        so the next step cannot consume a stale ``pending_grad`` or trip
+        over a failed flush via the α gate. Never raises. The completed
+        prefix of the in-place Adam update stays applied — a failed step
+        is re-run from a checkpoint, not resumed."""
+        for d in (self._late_pre, self._early_futs, self._late_futs):
+            for f in list(d.values()):
+                _cancel_or_drain(f)
+            d.clear()
+        self._hint_t.clear()
+        for l in range(len(self.masters)):
+            key = f"pending_grad:{l}"
+            if key in self.host:
+                self.host.pop(key)
 
 
 class KVBlockCoordinator:

@@ -1,0 +1,545 @@
+"""OffloadEngine: GreedySnake's schedules executed against real
+three-tier storage (device / host / SSD), by compiling a schedule plan
+once and interpreting it every step — the reference's
+``offload.engine``, on torch.
+
+* ``repro_torch.core.plan`` compiles the schedule — vertical, horizontal,
+  or the wave hybrid — into a linear op stream with ``PREFETCH`` hints
+  from a lookahead pass;
+* ``repro_torch.offload.executor.execute_plan`` walks the plan against
+  the three coordinators and the ``repro_torch.io`` engine;
+* ``repro_torch.core.plan.plan_traffic`` predicts every byte counter of
+  a run statically from the same IR; the measured meters equal it.
+
+Per layer, the low-precision parameters (``param_dtype``), the f32
+master copy and the Adam moments live in tiered vectors split between
+host and SSD by the configured ratios; the per-layer Adam runs on the
+host (``CpuAdam``, numpy), its (1-α) fraction overlapping backward and
+its α fraction the next step's forward (``OPT_LATE`` gates, §4.4). The
+embedding and LM head stay device-resident with their own Adam, K2
+(``kernels.fused_adam``); there is no f32 master for them (the
+reference keeps none either). Every layer's attention runs K1
+(``kernels.flash_attention``), forward and backward.
+
+A layer's parameters are one flat vector in the reference's
+``_flatten_tree`` order (leaves in sorted-key order); ``unflatten``
+returns views of it, so one ``torch.autograd.grad`` with respect to the
+flat tensor gives the layer's whole gradient. Backward recomputes the
+layer from its boundary checkpoint (``activation_policy="recompute"``,
+the paper's); the activation-spill policies, the plan hot swap and
+checkpoints come with later slices and raise ``NotImplementedError``.
+
+Device tensors cross to the host only on the executor's thread; the I/O
+engine's workers touch numpy arrays alone.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import defaultdict
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device, tree
+from repro_torch.core.perfmodel import MachineParams, StorageRatios
+from repro_torch.core.plan import (PlanSpec, compile_wave, insert_prefetch,
+                                   mb_order)
+from repro_torch.io import IOConfig, IOEngine
+from repro_torch.kernels.fused_adam import fused_adam
+from repro_torch.models import blocks as blk
+from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
+from repro_torch.models.model import _period_slice, _xent_chunk
+from repro_torch.obs import Tracer
+from repro_torch.offload.coordinators import (InterLayerTensorCoordinator,
+                                              OptimizerStepCoordinator,
+                                              ParameterCoordinator)
+from repro_torch.offload.executor import execute_plan, stall_seconds
+from repro_torch.offload.stores import (HostStore, SSDStore, TieredVector,
+                                        TrafficMeter, host_dtype, to_host)
+from repro_torch.optim.cpu_adam import CpuAdam
+
+__all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
+           "bind_block_fns", "mb_order", "split_microbatches",
+           "shifted_labels", "engine_workload", "lookahead_stats",
+           "offload_state"]
+
+#: what the port's engine does not run yet, and the slice that brings it
+_SPILL_SLICE = ("activation_policy='spill'/'auto' (the activation-spill "
+                "stream) is ported with a later slice; this slice runs "
+                "'recompute'")
+
+
+@dataclasses.dataclass
+class OffloadConfig:
+    schedule: str = "vertical"          # "vertical" | "horizontal" | "wave"
+    num_microbatches: int = 4
+    micro_batch: int = 2
+    seq_len: int = 128
+    alpha: float = 0.0                  # delayed optimizer ratio (§4.4)
+    wave_size: int = 0                  # W for schedule="wave" (must
+                                        # divide num_microbatches)
+    ratios: StorageRatios = dataclasses.field(default_factory=StorageRatios)
+    lr: float = 1e-3
+    io_workers: int = 4
+    param_dtype: str = "float32"        # "float32" | "bfloat16"
+    io: Optional[IOConfig] = None       # paths/chunking/budget/bandwidth
+                                        # (None: single path = the workdir)
+    activation_policy: str = "recompute"  # "recompute" (this slice) |
+                                        # "spill" | "auto" (later slice)
+    machine: Optional[MachineParams] = None  # link rates for "auto"
+    prefetch_depth: int = 1             # cross-stream lookahead depth (0
+                                        # disables the hints; byte
+                                        # counters and results identical)
+    trace: bool = False                 # start with the span tracer on
+    backpressure: float = 0.5           # skip hints once the I/O
+                                        # engine's live depth exceeds this
+                                        # fraction of its in-flight budget
+
+    MAX_PREFETCH_DEPTH = 16
+    SCHEDULES = ("vertical", "horizontal", "wave")
+    ACTIVATION_POLICIES = ("recompute", "spill", "auto")
+    PARAM_DTYPES = ("float32", "bfloat16")
+
+    def __post_init__(self):
+        """Reject malformed knobs at construction."""
+        if self.schedule not in self.SCHEDULES:
+            raise ValueError(
+                f"unknown schedule {self.schedule!r}; "
+                f"choose one of {self.SCHEDULES}")
+        if self.activation_policy not in self.ACTIVATION_POLICIES:
+            raise ValueError(
+                f"unknown activation_policy {self.activation_policy!r}; "
+                f"choose one of {self.ACTIVATION_POLICIES}")
+        if self.param_dtype not in self.PARAM_DTYPES:
+            raise ValueError(
+                f"param_dtype={self.param_dtype!r}; the port's engine runs "
+                f"one of {self.PARAM_DTYPES}")
+        d = int(self.prefetch_depth)
+        if not 0 <= d <= self.MAX_PREFETCH_DEPTH:
+            raise ValueError(
+                f"prefetch_depth={self.prefetch_depth} is outside "
+                f"[0, {self.MAX_PREFETCH_DEPTH}]; 0 disables the "
+                "lookahead hints, 1 is the classic two-stage pipeline, "
+                "larger values hint further ahead")
+        if not 0.0 < float(self.backpressure) <= 1.0:
+            raise ValueError(
+                f"backpressure={self.backpressure} must be in (0, 1] "
+                "(fraction of the I/O in-flight budget beyond which "
+                "lookahead hints are skipped)")
+
+    def resolved_prefetch_depth(self) -> int:
+        """The validated lookahead depth (0 = hints off)."""
+        self.__post_init__()     # mutable dataclass: re-check at use
+        return int(self.prefetch_depth)
+
+    def resolved_wave_size(self) -> int:
+        """The W this config's schedule compiles to."""
+        M = self.num_microbatches
+        if self.schedule == "vertical":
+            return M
+        if self.schedule == "horizontal":
+            return 1
+        W = self.wave_size
+        if W < 1 or M % W:
+            raise ValueError(
+                f"wave_size={W} must be in [1, M] and divide "
+                f"num_microbatches={M}")
+        return W
+
+
+def _flat(params) -> torch.Tensor:
+    """One layer's tree as a flat vector (leaves in sorted-key order)."""
+    return torch.cat([t.reshape(-1) for t in tree.leaves(params)])
+
+
+def _make_unflatten(treedef, shapes):
+    sizes = [math.prod(s) for s in shapes]
+    offs = np.cumsum([0] + sizes)
+
+    def unflatten(flat):
+        """Views of ``flat`` shaped as the layer's tree."""
+        return tree.unflatten(treedef, [
+            flat[int(offs[i]):int(offs[i]) + sizes[i]].view(shapes[i])
+            for i in range(len(sizes))])
+    return unflatten
+
+
+def offload_state(cfg, params) -> Dict[str, object]:
+    """The engine's ``params=`` dict from the port's model tree (a dense
+    stack of one-block periods): ``{"layers": [flat vector per layer],
+    "embed", "unembed", "final_norm"}``."""
+    plan = blk.build_plan(cfg)
+    if len(plan.period) != 1 or plan.prefix or plan.suffix:
+        raise ValueError("the offload engine drives stacks of one-block "
+                         "periods")
+    return {"layers": [_flat(_period_slice(params["periods"], i)["sub0"])
+                       for i in range(plan.n_periods)],
+            "embed": params["embed"], "unembed": params["unembed"],
+            "final_norm": params["final_norm"]}
+
+
+def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
+    """The per-layer / embedding / head functions the executor calls.
+
+    ``layer_fwd_res`` runs the layer's forward with autograd on the
+    leaves ``(p_flat, x)`` and returns ``(y, residuals)``;
+    ``layer_bwd_res`` is one ``torch.autograd.grad`` from those
+    residuals, returning ``(dx, dp in f32)``. ``adam_dev`` is K2 over a
+    device-resident tensor and its moments."""
+
+    def block(p_flat, x):
+        y, _, _ = blk.block_apply(unflatten(p_flat), x, cfg, kind,
+                                  mode="train")
+        return y
+
+    def layer_fwd(p_flat, x):
+        with torch.no_grad():
+            return block(p_flat, x)
+
+    def layer_fwd_res(p_flat, x):
+        p = p_flat.detach().requires_grad_()
+        xx = x.detach().requires_grad_()
+        with torch.enable_grad():
+            y = block(p, xx)
+        return y.detach(), (p, xx, y)
+
+    def layer_bwd_res(res, dy):
+        p, xx, y = res
+        dp, dx = torch.autograd.grad(y, (p, xx), dy)
+        return dx, dp.float()
+
+    def embed_fwd(embed, tokens):
+        return embed[tokens]
+
+    def head_bwd(unembed, norm, x, labels, weights, denom):
+        u = unembed.detach().requires_grad_()
+        nm = norm.detach().requires_grad_()
+        xx = x.detach().requires_grad_()
+        with torch.enable_grad():
+            h = rms_norm(xx, nm, cfg.norm_eps)
+            tot, _ = _xent_chunk(h, u, labels, weights)
+            loss = tot / denom
+            du, dn, dx = torch.autograd.grad(loss, (u, nm, xx))
+        return loss.detach(), du, dn, dx
+
+    def embed_bwd(embed, tokens, dx):
+        d = torch.zeros_like(embed)
+        d.index_put_((tokens.reshape(-1),),
+                     dx.reshape(-1, embed.shape[-1]).to(embed.dtype),
+                     accumulate=True)
+        return d
+
+    def adam_dev(p, state, g, step, lr):
+        """K2 (b1 0.9, b2 0.95, eps 1e-8, no weight decay) over the whole
+        tensor; updates ``state["m"]``/``["v"]`` and returns the new
+        parameter (the f32 result for f32, the bf16 copy for bf16)."""
+        p2, state["m"], state["v"], lowp = fused_adam(
+            p.reshape(-1), state["m"], state["v"], g.reshape(-1), step,
+            lr=lr, b1=0.9, b2=0.95, eps=1e-8)
+        return (lowp if p.dtype == torch.bfloat16 else p2).reshape(p.shape)
+
+    return {"layer_fwd": layer_fwd, "layer_fwd_res": layer_fwd_res,
+            "layer_bwd_res": layer_bwd_res, "embed": embed_fwd,
+            "head_bwd": head_bwd, "embed_bwd": embed_bwd,
+            "adam_dev": adam_dev}
+
+
+def bind_block_fns(obj, fns: Dict[str, object]) -> None:
+    """Attach :func:`build_block_fns` results as the ``j_*`` attributes
+    the executor calls."""
+    obj.j_layer_fwd = fns["layer_fwd"]
+    obj.j_layer_fwd_res = fns["layer_fwd_res"]
+    obj.j_layer_bwd_res = fns["layer_bwd_res"]
+    obj.j_embed = fns["embed"]
+    obj.j_head_bwd = fns["head_bwd"]
+    obj.j_embed_bwd = fns["embed_bwd"]
+    obj.j_adam_dev = fns["adam_dev"]
+
+
+def engine_workload(ocfg: OffloadConfig, cfg, P: int, itemsize: int,
+                    act_nbytes: int):
+    """The engine-accurate :class:`repro_torch.core.perfmodel.Workload`:
+    the FLOP model of ``Workload.from_config`` with the byte fields
+    overridden by this engine's sizes (its dtype, its flat layer vector,
+    its residual payload)."""
+    from repro_torch.core.perfmodel import Workload
+    L = cfg.num_layers
+    tokens = ocfg.micro_batch * ocfg.seq_len
+    return dataclasses.replace(
+        Workload.from_config(cfg, ocfg.micro_batch, ocfg.seq_len),
+        ms=L * P * itemsize,
+        cs=L * tokens * cfg.d_model * itemsize,
+        os_bytes=3 * L * P * 4,
+        grad_bytes=L * P * 4,
+        as_bytes=L * act_nbytes,
+    )
+
+
+def lookahead_stats(eng, coordinators) -> Dict[str, object]:
+    """Prefetch hit/miss counters over ``coordinators`` plus the engine's
+    adaptive-skip counters and per-op stall meters."""
+    hits = sum(c.la_hits for c in coordinators)
+    misses = sum(c.la_misses for c in coordinators)
+    total = hits + misses
+    return {"hits": hits, "misses": misses,
+            "hit_rate": hits / total if total else 1.0,
+            "hint_skips": eng.hint_skips,
+            "act_skips": eng.act_skips,
+            "stall_s": stall_seconds(eng.op_seconds),
+            "op_seconds": dict(eng.op_seconds)}
+
+
+def split_microbatches(tokens: np.ndarray, M: int, micro_batch: int
+                       ) -> np.ndarray:
+    if tokens.shape[0] != M * micro_batch:
+        raise ValueError(f"{tokens.shape[0]} sequences are not M={M} "
+                         f"micro-batches of {micro_batch}")
+    return tokens.reshape(M, micro_batch, -1)
+
+
+def shifted_labels(tok_mb: np.ndarray, device="cpu"):
+    """Next-token labels/weights for one micro-batch (last position
+    masked), identical across engines, as tensors on ``device``."""
+    lab = np.concatenate([tok_mb[:, 1:], np.zeros((tok_mb.shape[0], 1),
+                                                  tok_mb.dtype)], 1)
+    w = np.ones(tok_mb.shape, np.float32)
+    w[:, -1] = 0.0
+    return (torch.from_numpy(lab).long().to(device),
+            torch.from_numpy(w).to(device))
+
+
+class OffloadEngine:
+    """SSD-offloaded training of a dense stack. Construction: model
+    config, offload config, seed, SSD workdir; ``params`` (tensors, as
+    :func:`offload_state` and ``weights.offload_state_from_jax`` make
+    them) replaces the seeded init and is not modified; ``device``
+    defaults to ``cuda``."""
+
+    def __init__(self, cfg, ocfg: OffloadConfig, seed, workdir: str, *,
+                 params=None, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the offload engine drives dense stacks (got "
+                f"{cfg.family!r}); other families come with later slices")
+        plan = blk.build_plan(cfg)
+        if len(plan.period) != 1 or plan.prefix or plan.suffix:
+            raise ValueError("the offload engine drives homogeneous stacks "
+                             "of one-block periods (num_layers >= 2)")
+        if ocfg.activation_policy != "recompute":
+            raise NotImplementedError(_SPILL_SLICE)
+        self.cfg = cfg
+        self.ocfg = ocfg
+        self.kind = plan.period[0]
+        self.L = cfg.num_layers
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, ocfg.param_dtype)
+        self.meter = TrafficMeter()
+        self.host = HostStore(self.meter)
+        # a gated param fetch may wait on an optimizer request and two
+        # fetches can be gated at once: at least 3 request workers, or
+        # the α-delay gate discipline can deadlock
+        iocfg = ocfg.io if ocfg.io is not None else \
+            IOConfig(workers=ocfg.io_workers)
+        if iocfg.workers < 3:
+            iocfg = dataclasses.replace(iocfg, workers=3)
+        self.tracer = Tracer()
+        if ocfg.trace:
+            self.tracer.enable()
+        self.ioe = IOEngine(iocfg, meter=self.meter, default_root=workdir,
+                            tracer=self.tracer)
+        self.ssd = SSDStore(workdir, self.meter, engine=self.ioe)
+        self.step_num = 0
+        self._closed = False
+        self.phase_time: Dict[str, float] = {"fwd": 0.0, "bwd": 0.0,
+                                             "opt_wait": 0.0}
+
+        # ---- per-layer params straight into tiered storage ----
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        x = ocfg.ratios
+        hdt = host_dtype(self.dtype)
+        self.p_vecs: List[TieredVector] = []
+        self.m_master: List[TieredVector] = []
+        self.m_m: List[TieredVector] = []
+        self.m_v: List[TieredVector] = []
+        tmpl = None
+        for l in range(self.L):
+            if params is None or tmpl is None:
+                lp = blk.block_init(gen, cfg, self.kind, dtype=self.dtype,
+                                    device=self.device)
+                leaves, treedef = tree.flatten(lp)
+                tmpl = (treedef, [tuple(t.shape) for t in leaves])
+            flat = (_flat(lp) if params is None
+                    else params["layers"][l].reshape(-1))
+            lp = leaves = None
+            flat = flat.to(self.dtype)
+            if l == 0:
+                self.P = flat.numel()
+            elif flat.numel() != self.P:
+                raise ValueError(f"layer {l} has {flat.numel()} parameters, "
+                                 f"layer 0 {self.P}")
+            pv = TieredVector(f"param:{l}", self.P, hdt, x.param, self.host,
+                              self.ssd, "param")
+            pv.write_full(to_host(flat))
+            self.p_vecs.append(pv)
+            master = flat.float().cpu().numpy()
+            del flat
+            zeros = np.zeros(self.P, np.float32)
+            for name, lst, init in (("master", self.m_master, master),
+                                    ("m", self.m_m, zeros),
+                                    ("v", self.m_v, zeros)):
+                tv = TieredVector(f"{name}:{l}", self.P, np.float32, x.opt,
+                                  self.host, self.ssd, "opt")
+                tv.write_full(init)
+                lst.append(tv)
+            del master, zeros
+        self._unflatten = _make_unflatten(*tmpl)
+
+        # ---- embedding / head resident on the device (+ K2 Adam) ----
+        if params is None:
+            self.embed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                    self.dtype, device=self.device)
+            self.unembed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                      self.dtype,
+                                      device=self.device).T.contiguous()
+            self.final_norm = init_rms_scale(cfg.d_model, device=self.device)
+        else:
+            def dev(name, dt):
+                return params[name].to(
+                    device=self.device, dtype=dt).contiguous()
+            self.embed = dev("embed", self.dtype)
+            self.unembed = dev("unembed", self.dtype)
+            self.final_norm = dev("final_norm", torch.float32)
+        self.head_state = {
+            t: {"m": torch.zeros(getattr(self, t).numel(),
+                                 dtype=torch.float32, device=self.device),
+                "v": torch.zeros(getattr(self, t).numel(),
+                                 dtype=torch.float32, device=self.device)}
+            for t in ("embed", "unembed", "final_norm")}
+
+        # ---- coordinators (all submit through the shared IOEngine) ----
+        self.params_c = ParameterCoordinator(self.p_vecs, self.meter,
+                                             self.ioe, self.dtype,
+                                             device=self.device)
+        self.ckpt_c = InterLayerTensorCoordinator(
+            x.ckpt, self.host, self.ssd, self.meter, self.ioe,
+            device=self.device)
+        self.opt_c = OptimizerStepCoordinator(
+            self.m_master, self.m_m, self.m_v, self.p_vecs, self.host,
+            self.meter, self.ioe, CpuAdam(lr=ocfg.lr), ocfg.alpha,
+            param_dtype=self.dtype)
+        for c in self._coordinators():
+            c.tracer = self.tracer
+
+        bind_block_fns(self, build_block_fns(cfg, self.kind,
+                                             self._unflatten))
+        self.act_policy = "recompute"
+        self.act_nbytes = 0        # no activation stream in this slice
+        self.act_fallbacks = 0
+        self.op_seconds: Dict[str, float] = defaultdict(float)
+        self.hint_skips = 0         # hints skipped under backpressure
+        self.act_skips = 0
+        self.backpressure = ocfg.backpressure
+        self._plan = self._compile_plan()
+
+    # ------------------------------------------------------------------
+    def _mb_order(self, l: int) -> List[int]:
+        """The canonical §4.2 alternating micro-batch order for this
+        config's M; the plan compiler consults this method."""
+        return mb_order(self.ocfg.num_microbatches, l)
+
+    def _compile_plan(self):
+        """Compile the configured schedule once; every ``train_step``
+        interprets the same plan."""
+        depth = self.ocfg.resolved_prefetch_depth()
+        spec = PlanSpec(L=self.L, M=self.ocfg.num_microbatches,
+                        alpha=self.ocfg.alpha, ranks=1, act_spill=False)
+        # depth 0 = the full lookahead-off baseline: no hints AND the
+        # prologue OPT_LATE ordering
+        plan = compile_wave(spec, self.ocfg.resolved_wave_size(),
+                            order=self._mb_order, opt_epilogue=depth > 0)
+        return insert_prefetch(plan, depth=depth)
+
+    def train_step(self, tokens: np.ndarray) -> float:
+        """One training step on ``tokens`` ((M * micro_batch, seq_len)
+        int); returns the mean token loss."""
+        return execute_plan(self, self._plan, tokens)
+
+    def _split_tokens(self, tokens):
+        return split_microbatches(tokens, self.ocfg.num_microbatches,
+                                  self.ocfg.micro_batch)
+
+    def _labels(self, tok_mb):
+        return shifted_labels(tok_mb, self.device)
+
+    # ------------------------------------------------------------------
+    def finish(self):
+        """Flush any α-pending optimizer work and drain outstanding
+        checkpoint spills (end of training): afterwards the meters are
+        complete and deterministic."""
+        for l in range(self.L):
+            self.opt_c.flush_late(l, self.step_num)
+            self.opt_c.wait_late(l)
+        self.opt_c.wait_all()
+        self.ckpt_c.wait_pending()
+
+    def apply_plan_config(self, *args, **kwargs):
+        raise NotImplementedError(
+            "apply_plan_config (the autotuner's plan hot swap) is ported "
+            "with a later slice")
+
+    def save_checkpoint(self, directory: str) -> str:
+        raise NotImplementedError(
+            "save_checkpoint (offload/checkpoint.py) is ported with a later "
+            "slice")
+
+    def restore_checkpoint(self, directory: str) -> int:
+        raise NotImplementedError(
+            "restore_checkpoint (offload/checkpoint.py) is ported with a "
+            "later slice")
+
+    def traffic(self) -> Dict[str, int]:
+        out = self.meter.snapshot()
+        out["host:peak_nbytes"] = self.host.peak_nbytes
+        return out
+
+    def _coordinators(self):
+        return (self.params_c, self.ckpt_c, self.opt_c)
+
+    def _lookahead_stats(self) -> Dict[str, object]:
+        return lookahead_stats(self, self._coordinators())
+
+    def reset_stats(self):
+        """Zero every measured-iteration meter (warm-up boundary; the
+        traffic meter has its own ``reset``)."""
+        self.op_seconds.clear()
+        self.hint_skips = self.act_skips = self.act_fallbacks = 0
+        for k in self.phase_time:
+            self.phase_time[k] = 0.0
+        for c in self._coordinators():
+            c.la_hits = c.la_misses = 0
+
+    @property
+    def plan(self):
+        """The compiled schedule plan this engine interprets each step."""
+        return self._plan
+
+    def metrics_snapshot(self) -> Dict[str, object]:
+        """The versioned flat metrics snapshot; see
+        :func:`repro_torch.obs.build_snapshot`."""
+        from repro_torch.obs import build_snapshot
+        return build_snapshot(self)
+
+    def close(self):
+        """Drain outstanding I/O, delete the workdir's tensor files, and
+        shut the transfer engine down. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        self.params_c.reset()
+        self.ckpt_c.wait_pending()
+        self.opt_c.wait_all()
+        self.ssd.close()              # removes stripe files from the paths
+        self.ioe.shutdown(wait=True)

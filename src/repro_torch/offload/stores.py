@@ -2,7 +2,11 @@
 
 The device tier is the engine's torch device (a CUDA card, or the CPU
 in the tests); the host tier is numpy buffers and the SSD tier the
-filesystem. All traffic is metered by category so the engine's counters
+filesystem. numpy has no bf16, so a bf16 tensor lives on the host as its
+``uint16`` bit patterns (:func:`host_dtype`, :func:`to_host`,
+:func:`to_device`): element counts, and so every tier split
+``k = round(x·n)`` and every byte meter, are the same as for a real
+2-byte type. All traffic is metered by category so the engine's counters
 can be validated against the closed-form model in repro_torch.core.traffic.
 
 All SSD bytes move through :class:`repro_torch.io.IOEngine`: chunked,
@@ -18,9 +22,47 @@ from concurrent.futures import CancelledError
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.io import (CATEGORY_PRIORITY, IOConfig, IOEngine, IOPriority,
                       IORequest, StripedFiles)
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type that holds ``dtype``'s elements on the host."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return np.dtype(torch.empty((), dtype=dtype).numpy().dtype)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's elements as a host numpy array with the same bits (bf16
+    as ``uint16`` bit patterns). Runs on the caller's thread: it is the
+    device -> host copy."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def to_device(arr: np.ndarray, dtype: torch.dtype, shape,
+              device) -> torch.Tensor:
+    """Inverse of :func:`to_host`: the host array's bits as a ``dtype``
+    tensor of ``shape`` on ``device``."""
+    if dtype == torch.bfloat16:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return t.to(device).view(torch.bfloat16).reshape(shape)
+    return torch.from_numpy(arr).to(device).reshape(shape)
+
+
+def host_cast(arr: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """f32 host values converted to ``dtype``'s host form: bf16 rounds to
+    nearest even (through ``torch``'s conversion) and returns ``uint16``
+    bit patterns; other types are a numpy ``astype`` copy."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr).to(torch.bfloat16).view(
+            torch.int16).numpy().view(np.uint16)
+    return arr.astype(host_dtype(dtype))
 
 
 class TrafficMeter:

@@ -196,7 +196,7 @@ class ServeEngine:
         self._resident = tree.tree_map(lambda a: a.to(self.device), resident)
 
         self.p_coord = ParameterCoordinator(vecs, self.meter, self.ioe,
-                                            device=self.device)
+                                            torch.uint8, device=self.device)
         self.kv_coord = KVBlockCoordinator(
             scfg.kv_block_bytes, scfg.kv_x_host, self.host, self.ssd,
             self.meter, self.ioe, device=self.device)

@@ -35,3 +35,18 @@ def params_from_jax(params_np, device=None):
     """The reference's parameter tree (numpy leaves) as the port's
     (torch leaves on ``device``)."""
     return tree.tree_map(lambda a: tensor_from_numpy(a, device), params_np)
+
+
+
+def offload_state_from_jax(eng):
+    """The port ``OffloadEngine``'s ``params=`` dict from the reference
+    engine's state, read out as numpy arrays: every layer's flat
+    parameter vector (``eng.p_vecs[l].read()``) and the device-resident
+    embedding, LM head and final norm (``np.asarray``). bf16 goes through
+    the same bitwise view as :func:`tensor_from_numpy`; tensors stay on
+    the CPU."""
+    return {"layers": [tensor_from_numpy(v.read()).reshape(-1)
+                       for v in eng.p_vecs],
+            "embed": tensor_from_numpy(np.asarray(eng.embed)),
+            "unembed": tensor_from_numpy(np.asarray(eng.unembed)),
+            "final_norm": tensor_from_numpy(np.asarray(eng.final_norm))}

@@ -1,5 +1,6 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
-loads neither ``jax`` nor anything of the JAX package ``repro``, and no
+loads neither ``jax``, nor anything of the JAX package ``repro``, nor
+``ml_dtypes`` (a dependency of JAX, absent where the card is), and no
 source of the port (or ``chip_smoke.py``) imports them."""
 import os
 import re
@@ -21,8 +22,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
 bad = sorted(n for n in sys.modules
-             if n == "jax" or n.startswith("jax.") or n == "repro"
-             or n.startswith("repro."))
+             if n.split(".")[0] in ("jax", "repro", "ml_dtypes"))
 print(len(names), bad)
 """
 
@@ -39,8 +39,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(?:\.|\s)(?!_))",
-    re.M)
+    r"^\s*(?:import\s+(jax|repro|ml_dtypes)\b(?!_)"
+    r"|from\s+(jax|repro|ml_dtypes)(?:\.|\s)(?!_))", re.M)
 
 
 def _sources():
@@ -67,7 +67,8 @@ def test_no_source_imports_jax_or_the_reference():
 
 def test_the_import_scan_catches_offenders():
     for bad in ("import jax", "from jax import numpy", "import repro.io",
-                "from repro.models import model", "    from repro import x"):
+                "from repro.models import model", "    from repro import x",
+                "import ml_dtypes", "from ml_dtypes import bfloat16"):
         assert _IMPORT.search(bad), bad
     for fine in ("import repro_torch", "from repro_torch.io import IOConfig",
                  "import jaxlib_free_module"):

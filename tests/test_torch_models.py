@@ -36,6 +36,17 @@ ATOL_OP = 1e-5
 ATOL_LOGITS = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes gain nothing from torch's intra-op threads, and under
+    the parallel test workers every process's thread team contends for
+    the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

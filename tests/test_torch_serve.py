@@ -35,6 +35,17 @@ PROMPT_LEN = 4
 BB = 4096
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes gain nothing from torch's intra-op threads, and under
+    the parallel test workers every process's thread team contends for
+    the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blocks_per_request():
     template = mdl.init_caches(CFG, 1, MAX_LEN, dtype=torch.float32,
                                device="meta")
@@ -163,6 +174,7 @@ def test_serve_snapshot_round_trips_json():
         eng = _engine(d, capacity_requests=1)
         rids = [eng.submit(p, 3) for p in _prompts(2)]
         _drain(eng, preempt_rid=rids[0])
+        eng.kv_coord.wait_pending()     # finished requests' SSD spills are async
         snap = eng.metrics_snapshot()
         again = json.loads(json.dumps(snap))
         assert again["schedule"] == "serve"
