@@ -10,8 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes the serving and training paths give it, within the stated
    tolerance, and timed beside its bound, its plain version and one
    PyTorch library call: K1 forward, K1 backward (also run twice and
-   required bit-identical) and K2 fused Adam (also the two-stage
-   ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one launch).
+   required bit-identical), K2 fused Adam (also the two-stage
+   ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one launch)
+   and K3 selective scan (falcon-mamba-7b's prefill shapes and the f32
+   sweep; run twice, bit-identical; no library call computes it).
 4. serve — ``ServeEngine`` at GPT-65B full width (depth cut to
    ``SERVE_LAYERS``), bf16 params tiered across host and SSD, three requests
    (2048/1024/512-token prompts, 16 new tokens each) with a mid-run
@@ -31,14 +33,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal; (e) gpt-tiny f32 on the card against the same engine on the
    CPU. Also measures the card's busy time in the training steps (CUDA
    events around each layer, embedding and head call).
+6. mamba — falcon-mamba-7b at full width and depth (64 layers), bf16,
+   random weights: ``prefill`` of 2 x 2048 tokens (K3 in every layer),
+   32 greedy ``decode_step``s, then a fresh prefill over prompt + generated
+   tokens. Checks: K3 launches == prefills x 64; the last decode step's
+   logits against the fresh prefill's last logits; and the model at full
+   width, 2 layers, f32 on the card against the CPU (prefill logits,
+   every layer's h and conv tail, 4 decode steps).
 
-Prints every measurement (``serve stats`` and ``train stats`` JSON lines,
-a ``{"kernels": [...]}`` line with each kernel's numbers), the
-``nvidia-smi`` name/power-limit line, and last
+Prints every measurement (``serve stats``, ``train stats`` and ``mamba
+stats`` JSON lines, a ``{"kernels": [...]}`` line with each kernel's
+numbers), the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                # what a check runs: all phases
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases mamba
 """
 from __future__ import annotations
 
@@ -115,6 +125,53 @@ K2_CASES = [
 K2_HEADLINE = "gpt-65b embed bf16 step 1"
 # tests/test_kernels.py's K2 tolerances (atol; rtol 1e-7): p', m', v', bf16 p'
 K2_TOL = (1e-6, 1e-7, 1e-7, 2e-2)
+
+# K3: (name, B, S, di, st, dtype). The falcon-mamba-7b rows are the
+# prefill's shapes and types (d_inner 8192, state 16; x, B, C, y bf16 with
+# B and C column slices of the x_proj output, row stride dt_rank + 2 st;
+# dt, A, D f32); then tests/test_kernels.py's f32 sweep, and a case ragged
+# in S, di and st for the kernel's own tiling (256 / 8 channels x 32 steps)
+K3_SHAPES = [
+    ("falcon-mamba-7b prefill B=1 S=2048", 1, 2048, 8192, 16, "bfloat16"),
+    ("falcon-mamba-7b prefill B=2 S=2048", 2, 2048, 8192, 16, "bfloat16"),
+    ("f32 (1,64,128,8)", 1, 64, 128, 8, "float32"),
+    ("f32 (2,64,256,16)", 2, 64, 256, 16, "float32"),
+    ("f32 (1,128,512,16)", 1, 128, 512, 16, "float32"),
+    ("f32 (2,96,384,4)", 2, 96, 384, 4, "float32"),
+    ("f32 ragged (3,77,1000,5)", 3, 77, 1000, 5, "float32"),
+]
+K3_HEADLINE = "falcon-mamba-7b prefill B=1 S=2048"
+K3_DT_RANK = 256                 # falcon-mamba-7b's, for the B/C row stride
+K3_ATOL_F32 = 1e-4               # tests/test_kernels.py's selective-scan atol
+# h_final: max |kernel - plain| over max |plain|. h is an elementwise f32
+# recurrence on both sides (no sum over states), so they differ only in
+# rounding (fused multiply-adds, the exp implementation)
+K3_H_RTOL = 1e-4
+# the exp of every (t, d, s) runs on the special-function units: 16 per SM
+# per clock on compute capability 9.0, one MUFU.EX2 per expf
+SFU_PER_SM_CLOCK = 16
+# falcon-mamba-7b at full width and depth (64 layers), bf16: 2 prompts of
+# 2048 tokens, then greedy decode steps
+MAMBA_B, MAMBA_S, MAMBA_GEN = 2, 2048, 32
+# decode vs prefill: the logits of the first and the last decode step
+# against the last logits of a fresh prefill over prompt + the tokens
+# those steps read, ||decode - prefill|| / ||prefill||. The two paths
+# differ by the reference's own rounding (prefill rounds y to bf16 before
+# the gate, decode gates in f32, GEMM against GEMV sums), carried through
+# 64 bf16 layers; a K3 fault moves it far more (PERF.md, Findings)
+# (healthy: 0.027 at step 1, 0.069 at step 32; K3 without its D x term:
+# 1.41 at both; h_final left at zero: 0.103 and 0.248). Limits per step:
+DECODE_REL_TOL = {1: 0.06, MAMBA_GEN: 0.15}
+# card vs CPU: full width, 2 layers, f32, one 256-token prompt. Logits and
+# h within 1e-4; the conv tail within 1e-4 plus one bf16 ulp: it is the
+# f32 conv input rounded to bf16, and where the two devices' f32 values
+# straddle a rounding boundary they land an ulp apart. Such a flip feeds
+# the next decode steps, which then part by more than 1e-4 (3.2e-4 over
+# 4 steps run on from each device's own state), so each decode step
+# starts on the card from the CPU's state: every step is held at 1e-4
+# without compounding them
+MAMBA_PARITY_LAYERS, MAMBA_PARITY_S = 2, 256
+MAMBA_PARITY_TOL = 1e-4
 
 
 def nvidia_smi_line() -> str:
@@ -784,6 +841,332 @@ def phase_train_tiny(torch, report, workroot):
     return failures
 
 
+def sfu_exps_per_s() -> float:
+    """The card's exp rate: SMs x SFU_PER_SM_CLOCK x its maximum SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_SM_CLOCK * mhz * 1e6
+
+
+def k3_work(B, S, di, st, dtype):
+    """(bytes, f32 operations, exps) K3 needs on these inputs: x and y in
+    ``dtype``, dt f32 and B, C in ``dtype`` read or written once, A, D
+    and h_final f32; per (t, d, s) 6 f32 operations (dt A, da h, dx B,
+    the add, h C and its share of the sum over s) and one exp, per
+    (t, d) 3 more (dt x, D x, the add)."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = (B * S * di * (2 * item + 4) + 2 * B * S * st * item
+              + 4 * (di * st + di + B * di * st))
+    return nbytes, B * S * di * (6 * st + 3), B * S * di * st
+
+
+def k3_inputs(torch, B, S, di, st, dtype, seed):
+    """The model path's inputs (``dtype`` x, B, C with B and C strided
+    slices of one projection; f32 dt, A, D). bf16 rows: falcon-mamba-7b's
+    S4D-real A and a dt around softplus(-4) ~ 0.018; f32 rows:
+    tests/test_kernels.py's distributions."""
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(B, S, di, device="cuda", generator=g) * 0.5).to(dt_)
+    proj = torch.randn(B, S, K3_DT_RANK + 2 * st, device="cuda",
+                       generator=g).to(dt_)
+    Bc = proj[..., K3_DT_RANK:K3_DT_RANK + st]
+    Cc = proj[..., K3_DT_RANK + st:]
+    if dtype == "bfloat16":
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, di, device="cuda", generator=g) * 0.5 - 4.0)
+        A = -torch.arange(1, st + 1, dtype=torch.float32,
+                          device="cuda")[None, :].repeat(di, 1)
+        D = torch.ones(di, device="cuda")
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, di, device="cuda", generator=g) * 0.2)
+        A = -torch.exp(torch.randn(di, st, device="cuda", generator=g) * 0.3)
+        D = 1.0 + 0.1 * torch.randn(di, device="cuda", generator=g)
+    return x, dt, A, Bc, Cc, D
+
+
+def phase_k3(torch, k3, report):
+    """K3 against its plain version on the card: the model path's bf16
+    shapes and the f32 sweep; two launches bitwise equal; timed beside
+    its bound and the plain version (no PyTorch call computes a selective
+    scan, so there is no library time)."""
+    exp_rate = sfu_exps_per_s()
+    rows = []
+    for (name, B, S, di, st, dts) in K3_SHAPES:
+        ins = k3_inputs(torch, B, S, di, st, dts, 300 + len(rows))
+        y, h = k3.selective_scan_fwd(*ins)
+        y2, h2 = k3.selective_scan_fwd(*ins)
+        torch.cuda.synchronize()
+        deterministic = torch.equal(y, y2) and torch.equal(h, h2)
+        ry, rh = k3.selective_scan_plain(*ins)
+        dy = (y.float() - ry.float()).abs()
+        err = dy.max().item()
+        rel_err = (dy.norm() / ry.float().norm()).item()
+        h_rel = ((h - rh).abs().max() / rh.abs().max()).item()
+        if dts == "float32":
+            tol = K3_ATOL_F32
+            y_ok = err <= tol
+        else:
+            tol = TOL[dts]
+            y_ok = bool((dy <= tol + tol * ry.float().abs()).all()) \
+                and rel_err <= REL_TOL
+        ok = (deterministic and y_ok and h_rel <= K3_H_RTOL
+              and bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(h).all()))
+        del y2, h2, ry, rh, dy
+        big = S * di >= 1 << 20
+        ms = cuda_ms(lambda: k3.selective_scan_fwd(*ins), 20 if big else 100)
+        plain_ms = cuda_ms(lambda: k3.selective_scan_plain(*ins),
+                           2 if big else 5, warmup=1)
+        nbytes, ops, exps = k3_work(B, S, di, st, dts)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = max(ops / PEAK_FLOPS["float32"], exps / exp_rate) * 1e3
+        row = {"shape": name, "x": [B, S, di], "state": st, "dtype": dts,
+               "max_abs_err": err, "rel_err": rel_err,
+               "h_max_rel_err": h_rel, "tol": tol, "h_rtol": K3_H_RTOL,
+               "deterministic": deterministic, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bytes_ms": t_bytes,
+               "f32_ops_ms": ops / PEAK_FLOPS["float32"] * 1e3,
+               "exp_ms": exps / exp_rate * 1e3, "exps_per_s": exp_rate,
+               "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
+        rows.append(row)
+        report(f"K3 {name}: err {err:.3e} (tol {tol}) rel_err "
+               f"{rel_err:.3e} h rel {h_rel:.3e} (tol {K3_H_RTOL}) "
+               f"deterministic {deterministic} | kernel {ms:.4f} ms "
+               f"({row['gbytes_per_s']:.0f} GB/s) plain {plain_ms:.4f} ms "
+               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
+               f"{t_bytes:.4f}, f32 ops {row['f32_ops_ms']:.4f}, exps "
+               f"{row['exp_ms']:.4f}) -> {'OK' if ok else 'FAIL'}")
+        del ins, y, h
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mamba_parity(torch, report):
+    """falcon-mamba-7b at full width, ``MAMBA_PARITY_LAYERS`` layers, f32:
+    the card (K3 in prefill) against the CPU (the plain scan) on the
+    prefill's logits and every layer's h and conv tail, then on 4 decode
+    steps, each started on the card from the CPU's state and token (see
+    ``MAMBA_PARITY_LAYERS``)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as mdl
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              num_layers=MAMBA_PARITY_LAYERS)
+    params = mdl.init_params(cfg, 1, dtype=torch.float32, device="cpu")
+    pg = tree.tree_map(lambda a: a.cuda(), params)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, MAMBA_PARITY_S)))
+    cc = mdl.init_caches(cfg, 1, MAMBA_PARITY_S + 4, dtype=torch.float32,
+                         device="cpu")
+    cg = mdl.init_caches(cfg, 1, MAMBA_PARITY_S + 4, dtype=torch.float32)
+    lc, cc = mdl.prefill(params, cfg, {"tokens": prompt}, cc)
+    lg, cg = mdl.prefill(pg, cfg, {"tokens": prompt.cuda()}, cg)
+
+    def compare(step, lc, lg):
+        conv_c, h_c = tree.leaves(cc)
+        conv_g, h_g = (t.cpu() for t in tree.leaves(cg))
+        dconv = (conv_c.float() - conv_g.float()).abs()
+        return {"step": step,
+                "logits": (lc - lg.cpu()).abs().max().item(),
+                "h": (h_c - h_g).abs().max().item(),
+                "conv_ok": bool((dconv <= MAMBA_PARITY_TOL + 2 ** -7
+                                 * conv_c.float().abs()).all()),
+                "conv_flips": int((dconv > 0).sum()),
+                "finite": bool(torch.isfinite(lg).all())}
+    rows = [compare(0, lc, lg)]
+    for i in range(4):
+        with torch.no_grad():                # the CPU's state on the card
+            for dst, src in zip(tree.leaves(cg), tree.leaves(cc)):
+                dst.copy_(src)
+        tok = torch.argmax(lc, dim=-1)[:, None]
+        lc, cc = mdl.decode_step(params, cfg, tok, MAMBA_PARITY_S + i, cc)
+        lg, cg = mdl.decode_step(pg, cfg, tok.cuda(), MAMBA_PARITY_S + i, cg)
+        rows.append(compare(i + 1, lc, lg))
+    del pg, cg
+    torch.cuda.empty_cache()
+    worst = max(r["logits"] for r in rows)
+    h_err = max(r["h"] for r in rows)
+    ok = (worst <= MAMBA_PARITY_TOL and h_err <= MAMBA_PARITY_TOL
+          and all(r["conv_ok"] and r["finite"] for r in rows))
+    report(f"falcon-mamba-7b width, {MAMBA_PARITY_LAYERS} layers, f32, card "
+           f"vs CPU (prefill, then 4 decode steps from the CPU's state): "
+           f"logits max abs diff {worst:.3e}, h {h_err:.3e} (tol "
+           f"{MAMBA_PARITY_TOL}), conv tail within {MAMBA_PARITY_TOL} + one "
+           f"bf16 ulp {all(r['conv_ok'] for r in rows)} (elements that "
+           f"differ by step {[r['conv_flips'] for r in rows]}) -> "
+           f"{'OK' if ok else 'FAIL'}")
+    return ([] if ok else [f"falcon-mamba card/CPU differ: {rows}"]), rows
+
+
+def card_busy(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity only):
+    the summed device time of its kernels and copies, and the host wall
+    time to its end, synchronised, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return {"busy_ms": busy, "wall_ms": 1e3 * wall,
+            "busy_share": busy / (1e3 * wall)}
+
+
+def phase_mamba(torch, k3, report):
+    """falcon-mamba-7b at full width and depth, bf16, on the card:
+    prefill of ``MAMBA_B`` x ``MAMBA_S`` tokens, ``MAMBA_GEN`` greedy
+    decode steps, then a fresh prefill over prompt + generated tokens.
+    Gates: K3 launches == prefills x layers; decode vs prefill; card vs
+    CPU (:func:`mamba_parity`). Returns (failures, stats)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("falcon-mamba-7b")
+    B, S, gen = MAMBA_B, MAMBA_S, MAMBA_GEN
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(t.numel() for t in tree.leaves(params))
+    prompts = torch.from_numpy(SyntheticLM(cfg.vocab_size, seed=0)
+                               .batch(B, S)).cuda()
+    # K3's card time inside prefill: CUDA events around each scan call
+    scan_spans = []
+    real_scan = k3.selective_scan_fwd
+
+    def timed_scan(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_scan(*a)
+        ev[1].record()
+        scan_spans.append(ev)
+        return out
+    k3.selective_scan_fwd = timed_scan
+    try:
+        caches = mdl.init_caches(cfg, B, S + gen, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k3.launches = 0                              # main path starts here
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        logits, caches = mdl.prefill(params, cfg, {"tokens": prompts},
+                                     caches)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_card_ms = ev[0].elapsed_time(ev[1])
+        scan_ms = sum(a.elapsed_time(b) for a, b in scan_spans)
+        n_scans = len(scan_spans)
+        toks, step_s, decoded = [], [], {}
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        for i in range(gen):
+            toks.append(tok)
+            ts = time.perf_counter()
+            logits, caches = mdl.decode_step(params, cfg, tok, S + i, caches)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            if i + 1 in DECODE_REL_TOL:
+                decoded[i + 1] = logits
+        del caches
+        # a fresh prefill over prompt + the tokens each checked step read
+        fresh, prefill2_s = {}, []
+        for n in DECODE_REL_TOL:
+            full = torch.cat([prompts] + toks[:n], dim=1)   # (B, S + n)
+            c = mdl.init_caches(cfg, B, S + n, dtype=torch.bfloat16)
+            t1 = time.perf_counter()
+            fresh[n], _ = mdl.prefill(params, cfg, {"tokens": full}, c)
+            torch.cuda.synchronize()
+            prefill2_s.append(time.perf_counter() - t1)
+            del c
+        launches = k3.launches                       # main path ends here
+        peak = torch.cuda.max_memory_allocated()
+        # the card's busy time (kernels, from a torch.profiler trace) in one
+        # more prefill of the prompt and two more decode steps
+        c = mdl.init_caches(cfg, B, S + 2, dtype=torch.bfloat16)
+        busy = {"prefill": card_busy(torch, lambda: mdl.prefill(
+            params, cfg, {"tokens": prompts}, c))}
+        busy["decode_2_steps"] = card_busy(torch, lambda: [mdl.decode_step(
+            params, cfg, toks[i], S + i, c) for i in range(2)])
+        del c
+    finally:
+        k3.selective_scan_fwd = real_scan
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    failures = []
+    n_prefills = 1 + len(DECODE_REL_TOL)
+    if launches != n_prefills * cfg.num_layers:
+        failures.append(f"K3 launches {launches} != prefills {n_prefills} x "
+                        f"layers {cfg.num_layers}")
+    checks = []
+    for n in DECODE_REL_TOL:
+        got, want = decoded[n].float(), fresh[n].float()
+        rel = ((got - want).norm() / want.norm()).item()
+        ok = rel <= DECODE_REL_TOL[n] and bool(torch.isfinite(got).all()) \
+            and bool(torch.isfinite(want).all())
+        checks.append({"step": n, "rel": rel, "tol": DECODE_REL_TOL[n],
+                       "ok": ok,
+                       "max_abs": (got - want).abs().max().item(),
+                       "logit_scale": want.abs().max().item(),
+                       "argmax_agree": (torch.argmax(got, -1)
+                                        == torch.argmax(want, -1)).tolist()})
+        if not ok:
+            failures.append(f"decode step {n} vs a fresh prefill: rel {rel} "
+                            f"> {DECODE_REL_TOL[n]}")
+    report("falcon-mamba-7b decode vs a fresh prefill over prompt + "
+           "generated tokens: " + "; ".join(
+               f"step {c['step']} rel {c['rel']:.4e} (tol {c['tol']}) max abs "
+               f"{c['max_abs']:.4e} (logits up to {c['logit_scale']:.3f}) "
+               f"argmax agree {c['argmax_agree']} "
+               f"{'OK' if c['ok'] else 'FAIL'}" for c in checks))
+    f, parity = mamba_parity(torch, report)
+    failures += f
+    dec = sorted(step_s[1:]) or step_s
+    stats = {
+        "model": cfg.name, "layers": cfg.num_layers, "params": nparams,
+        "batch": B, "prompt": S, "gen": gen, "init_s": init_s,
+        "prefill_s": prefill_s, "prefill_card_ms": prefill_card_ms,
+        "prefill_tokens_per_s": B * S / prefill_s,
+        "fresh_prefill_s": prefill2_s,
+        "fresh_prefill_tokens_per_s": B * (S + gen) / prefill2_s[-1],
+        "k3_ms_in_prefill": scan_ms, "k3_calls_in_prefill": n_scans,
+        "k3_share_of_prefill": scan_ms / prefill_card_ms,
+        "decode_step_s": step_s,
+        "decode_step_s_median": dec[len(dec) // 2],
+        "decode_tokens_per_s": B * gen / sum(step_s),
+        "k3_launches": launches,
+        "decode_vs_prefill": checks, "card_vs_cpu": parity,
+        "card_busy": busy,
+        "max_memory_allocated": peak,
+    }
+    return failures, stats
+
+
 def _kernel_entry(name, source, replaces, launches, rows, headline,
                   smi, **extra):
     head = next((r for r in rows if r["shape"] == headline), None)
@@ -799,8 +1182,8 @@ def _kernel_entry(name, source, replaces, launches, rows, headline,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,train",
-                    help="comma list of: kernels, serve, train")
+    ap.add_argument("--phases", default="kernels,serve,train,mamba",
+                    help="comma list of: kernels, serve, train, mamba")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -813,6 +1196,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_adam as fad
+        from repro_torch.kernels import selective_scan as k3
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}",
               file=sys.stderr)
@@ -838,7 +1222,7 @@ def main() -> int:
             report(f"  {name}: {ln.strip()}")
 
     failures = []
-    rows, brows, arows = [], [], []
+    rows, brows, arows, srows = [], [], [], []
     wall = {}
     workroot = os.path.join(ROOT, "_work")
     os.makedirs(workroot, exist_ok=True)
@@ -857,6 +1241,11 @@ def main() -> int:
         failures += [f"K2 {r['shape']}: err {r['max_abs_err']} two-stage "
                      f"bitwise {r['two_stage_bitwise']}"
                      for r in arows if not r["ok"]]
+        srows = phase_k3(torch, k3, report)
+        failures += [f"K3 {r['shape']}: err {r['max_abs_err']} rel_err "
+                     f"{r['rel_err']} h rel {r['h_max_rel_err']} "
+                     f"deterministic {r['deterministic']}"
+                     for r in srows if not r["ok"]]
         wall["kernels"] = time.perf_counter() - t0
     # 4. serve
     stats = {}
@@ -918,6 +1307,33 @@ def main() -> int:
         report("train op seconds: " + json.dumps(tstats["op_seconds"]))
         report("train stats: " + json.dumps(tstats))
         wall["train"] = time.perf_counter() - t0
+    # 6. mamba
+    mstats = {}
+    if "mamba" in phases:
+        t0 = time.perf_counter()
+        cfg = get_config("falcon-mamba-7b")
+        report(f"mamba model: {cfg.name} at full width and depth (d_model "
+               f"{cfg.d_model}, d_inner {cfg.d_inner}, state "
+               f"{cfg.ssm_state}, conv {cfg.ssm_conv}, dt_rank "
+               f"{cfg.dt_rank}, {cfg.num_layers} layers, vocab "
+               f"{cfg.vocab_size}), bf16, {MAMBA_B} x {MAMBA_S} prompt "
+               f"tokens, {MAMBA_GEN} greedy decode steps")
+        f, mstats = phase_mamba(torch, k3, report)
+        failures += f
+        report(f"mamba ({smi}): prefill {mstats['prefill_s']:.3f} s "
+               f"({mstats['prefill_tokens_per_s']:.0f} tokens/s), K3 "
+               f"{100 * mstats['k3_share_of_prefill']:.2f} % of the "
+               f"prefill's card time, decode "
+               f"{mstats['decode_tokens_per_s']:.1f} tokens/s (median step "
+               f"{1e3 * mstats['decode_step_s_median']:.2f} ms), card busy "
+               f"{100 * mstats['card_busy']['prefill']['busy_share']:.1f} % "
+               f"of a prefill and "
+               f"{100 * mstats['card_busy']['decode_2_steps']['busy_share']:.1f}"
+               f" % of two decode steps, K3 launches "
+               f"{mstats['k3_launches']}, max_memory_allocated "
+               f"{mstats['max_memory_allocated'] / 2**30:.2f} GiB")
+        report("mamba stats: " + json.dumps(mstats))
+        wall["mamba"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
@@ -941,6 +1357,12 @@ def main() -> int:
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl.get("k2", 0), arows, K2_HEADLINE, smi),
+        _kernel_entry("K3 selective_scan_fwd",
+                      "src/repro_torch/csrc/selective_scan.cu",
+                      "src/repro/kernels/selective_scan.py:27",
+                      mstats.get("k3_launches", 0), srows, K3_HEADLINE, smi,
+                      library="none: no PyTorch call computes a selective "
+                              "scan"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,8 @@
 """Config registry of the port: ``get_config(name)`` / ``get_smoke(name)``.
 
-The architectures the serving slice runs (dense stacks of global GQA
-attention + MLP); the dataclass and the configs themselves are copies
-of the reference's.
+The architectures the port's slices run (dense stacks of global GQA
+attention + MLP, and the pure-Mamba falcon-mamba-7b); the dataclass and
+the configs themselves are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ _MODULES = {
     "gpt-175b": ("repro_torch.configs.gpt_paper", "GPT_175B"),
     "gpt-100m": ("repro_torch.configs.tiny", "GPT_100M"),
     "gpt-tiny": ("repro_torch.configs.tiny", "GPT_TINY"),
+    "falcon-mamba-7b": ("repro_torch.configs.falcon_mamba_7b", "CONFIG"),
 }
 
 

@@ -24,7 +24,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 #: every kernel source of the port (built together by ``build_all``)
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
+           "selective_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

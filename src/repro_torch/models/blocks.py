@@ -4,8 +4,10 @@ Stacks are decomposed into ``prefix + period x n + suffix`` exactly as
 in the reference, so parameter and cache trees have the same layout
 (period parameters stacked along a leading axis) and convert leaf by
 leaf. The port runs the period with a Python loop where the reference
-runs ``lax.scan``. Blocks here are attention + MLP; MLA, Mamba, MoE and
-cross-attention blocks come with later slices.
+runs ``lax.scan``. Blocks here are attention + MLP (dense stacks) and
+the pure-SSM Mamba block (``family == "ssm"``: norm + Mamba, no FFN);
+MLA, MoE, windowed and cross-attention blocks and hybrid stacks come
+with later slices.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.common import init_rms_scale, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
@@ -86,42 +89,61 @@ def build_plan(cfg, *, decoder: bool = True,
 
 
 def _supported(kind: LayerKind, cfg):
-    if (kind.mixer != "attn" or kind.window is not None or kind.moe
-            or kind.cross or cfg.family == "ssm"):
-        raise NotImplementedError(
-            f"{kind} blocks ({cfg.family}) are ported with the "
-            "off-main-path families slice; this slice runs attention + MLP")
+    if cfg.family == "ssm":
+        if kind.mixer == "mamba" and not kind.moe:
+            return
+    elif (cfg.family != "hybrid" and kind.mixer == "attn"
+          and kind.window is None and not kind.moe and not kind.cross):
+        return
+    raise NotImplementedError(
+        f"{kind} blocks ({cfg.family}) are ported with a later slice: MLA, "
+        "MoE, windowed and cross-attention blocks with the off-main-path "
+        "families slice, hybrid (Jamba) stacks after MoE; the port runs "
+        "attention + MLP and pure-SSM Mamba blocks")
 
 
 def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
                device=None) -> Dict[str, Any]:
     _supported(kind, cfg)
-    return {
-        "norm1": init_rms_scale(cfg.d_model, device=device),
-        "attn": attn_lib.gqa_init(generator, cfg, dtype, device=device),
-        "norm2": init_rms_scale(cfg.d_model, device=device),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                        device=device),
-    }
+    p: Dict[str, Any] = {"norm1": init_rms_scale(cfg.d_model, device=device)}
+    if kind.mixer == "mamba":
+        p["mamba"] = mamba_lib.mamba_init(generator, cfg, dtype,
+                                          device=device)
+        return p  # pure-mamba block: no separate FFN
+    p["attn"] = attn_lib.gqa_init(generator, cfg, dtype, device=device)
+    p["norm2"] = init_rms_scale(cfg.d_model, device=device)
+    p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                        device=device)
+    return p
 
 
 def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None):
     """Decode-cache structure for one block, on ``device`` (``cuda``
-    unless the caller names another)."""
+    unless the caller names another): ``{"kv": KVCache}`` for attention,
+    ``{"ssm": MambaState}`` for Mamba (its conv tail is bf16 and h f32
+    whatever ``dtype``, see ``models/mamba.py``)."""
     _supported(kind, cfg)
+    if kind.mixer == "mamba":
+        return {"ssm": mamba_lib.mamba_state_shape(cfg, batch,
+                                                   device=device)}
     return {"kv": attn_lib.gqa_cache_shape(cfg, batch, seq_len, dtype,
                                            device=device)}
 
 
 def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                 cache=None, pos: Optional[int] = None):
-    """Pre-norm residual block (attention + MLP). ``mode``: train |
-    prefill | decode. Returns (x, cache, aux_loss); ``cache`` is updated
-    in place (train takes none)."""
+    """Pre-norm residual block: attention + MLP, or (SSM) Mamba with no
+    second residual. ``mode``: train | prefill | decode. Returns (x,
+    cache, aux_loss); ``cache`` is updated in place (train takes none)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    if kind.mixer == "mamba":
+        ssm = cache.get("ssm") if cache else None
+        y, _ = mamba_lib.mamba_apply(params["mamba"], h, cfg, state=ssm,
+                                     mode=mode)
+        return x + y, cache, aux
     kv = cache.get("kv") if cache else None
     y, _ = attn_lib.gqa_apply(params["attn"], h, cfg=cfg, window=kind.window,
                               theta=kind.theta, cache=kv, pos=pos, mode=mode,

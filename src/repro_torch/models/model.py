@@ -43,7 +43,7 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
     ``jax.random``: tests that compare the two convert JAX params with
     ``weights.params_from_jax``."""
     device = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family!r} models are ported with a later slice")
     g = torch.Generator(device=device)

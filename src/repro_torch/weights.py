@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.models import attention, mamba
 
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
@@ -33,9 +34,27 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
 
 def params_from_jax(params_np, device=None):
     """The reference's parameter tree (numpy leaves) as the port's
-    (torch leaves on ``device``)."""
+    (torch leaves on ``device``). Mixed leaf dtypes (a Mamba block's f32
+    ``A_log``, ``D`` and ``dt_bias`` beside bf16 projections) keep their
+    own."""
     return tree.tree_map(lambda a: tensor_from_numpy(a, device), params_np)
 
+
+_STATES = {"KVCache": attention.KVCache, "MambaState": mamba.MambaState}
+
+
+def caches_from_jax(caches_np, device=None):
+    """The reference's decode caches (numpy leaves) as the port's: the
+    same tree, with each of the reference's ``KVCache`` / ``MambaState``
+    rebuilt as the port's class of that name."""
+    if isinstance(caches_np, dict):
+        return {k: caches_from_jax(v, device) for k, v in caches_np.items()}
+    if isinstance(caches_np, tuple) and hasattr(caches_np, "_fields"):
+        cls = _STATES[type(caches_np).__name__]
+        return cls(*(caches_from_jax(v, device) for v in caches_np))
+    if isinstance(caches_np, (tuple, list)):
+        return type(caches_np)(caches_from_jax(v, device) for v in caches_np)
+    return tensor_from_numpy(caches_np, device)
 
 
 def offload_state_from_jax(eng):

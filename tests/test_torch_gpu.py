@@ -11,11 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config
+from repro_torch import tree
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.perfmodel import StorageRatios
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_adam as fad
+from repro_torch.kernels import selective_scan as k3
 from repro_torch.models import model as mdl
 from repro_torch.offload import OffloadConfig, OffloadEngine
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -175,3 +177,72 @@ def test_offload_engine_alpha_is_bitwise_on_the_card():
     finally:
         torch.use_deterministic_algorithms(False)
     assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_kernel_matches_plain(dtype):
+    """K3 on the card against its plain version: ragged S, di and state
+    (S = 77, di = 1000, st = 5 and 16), B and C strided column slices of
+    one projection, f32 at tests/test_kernels.py's 1e-4, bf16 y at 2e-2;
+    h f32 at 1e-4 relative; a second launch gives the same bits."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt_ = getattr(torch, dtype)
+    for B, S, di, st in ((3, 77, 1000, 5), (2, 130, 512, 16)):
+        x = (torch.randn(B, S, di, device="cuda", generator=g) * 0.5).to(dt_)
+        proj = torch.randn(B, S, 7 + 2 * st, device="cuda",
+                           generator=g).to(dt_)
+        Bc, Cc = proj[..., 7:7 + st], proj[..., 7 + st:]
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, di, device="cuda", generator=g) * 0.2)
+        A = -torch.exp(torch.randn(di, st, device="cuda", generator=g) * 0.3)
+        D = 1.0 + 0.1 * torch.randn(di, device="cuda", generator=g)
+        before = k3.launches
+        y, h = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
+        y2, h2 = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
+        torch.cuda.synchronize()
+        assert k3.launches == before + 2
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+        ry, rh = k3.selective_scan_plain(x, dt, A, Bc, Cc, D)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(y.float(), ry.float(), atol=tol,
+                                   rtol=0 if dtype == "float32" else tol)
+        assert float((h - rh).abs().max()) <= 1e-4 * float(rh.abs().max())
+
+
+@pytest.mark.gpu
+def test_mamba_prefill_and_decode_on_the_card_match_the_cpu():
+    """falcon-mamba-7b smoke in f32: ``prefill`` (K3 in each layer) on the
+    card (its default device) against the same params on the CPU, logits
+    and h within 1e-4, the bf16 conv tail within 1e-4 plus one bf16 ulp
+    (the f32 conv input rounded on each device); then 4 decode steps,
+    each started on the card from the CPU's state, at the same limits (a
+    tail that rounded the other way would otherwise feed every later
+    step)."""
+    _need_card()
+    cfg = get_smoke("falcon-mamba-7b")
+    params = mdl.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    pg = tree.tree_map(lambda a: a.cuda(), params)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(0))
+    cc = mdl.init_caches(cfg, 2, 44, dtype=torch.float32, device="cpu")
+    cg = mdl.init_caches(cfg, 2, 44, dtype=torch.float32)
+    before = k3.launches
+    lc, cc = mdl.prefill(params, cfg, {"tokens": prompt}, cc)
+    lg, cg = mdl.prefill(pg, cfg, {"tokens": prompt.cuda()}, cg)
+    assert k3.launches - before == cfg.num_layers
+    for i in range(5):
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+        (conv_c, h_c), (conv_g, h_g) = tree.leaves(cc), tree.leaves(cg)
+        torch.testing.assert_close(h_g.cpu(), h_c, atol=1e-4, rtol=0)
+        torch.testing.assert_close(conv_g.cpu().float(), conv_c.float(),
+                                   atol=1e-4, rtol=2 ** -7)
+        if i == 4:
+            break
+        with torch.no_grad():
+            for dst, src in zip(tree.leaves(cg), tree.leaves(cc)):
+                dst.copy_(src)
+        tok = torch.argmax(lc, dim=-1)[:, None]
+        lc, cc = mdl.decode_step(params, cfg, tok, 40 + i, cc)
+        lg, cg = mdl.decode_step(pg, cfg, tok.cuda(), 40 + i, cg)
