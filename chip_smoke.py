@@ -102,6 +102,12 @@ K1_SHAPES = [
     ("qwen3-4b gqa S=1024", 1, 32, 8, 1024, 128, "bfloat16", True, None, 0),
     ("small f32 non-causal", 2, 4, 4, 256, 64, "float32", False, None, 0),
     ("small f32 gqa window q0", 1, 8, 2, 200, 64, "float32", True, 48, 16),
+    # the bf16 kernel's edges: ragged tiles, GQA, window and q0 at hd 64;
+    # ragged causal at hd 128
+    ("bf16 gqa hd64 ragged window q0", 1, 8, 2, 200, 64, "bfloat16", True,
+     48, 16),
+    ("bf16 ragged S=1000 causal", 1, 16, 16, 1000, 128, "bfloat16", True,
+     None, 0),
 ]
 HEADLINE = "gpt-65b prefill S=2048"
 
@@ -111,6 +117,9 @@ K1B_SHAPES = [
     ("qwen3-4b gqa S=1024", 1, 32, 8, 1024, 128, "bfloat16", True, None),
     ("small f32 non-causal", 2, 4, 4, 256, 64, "float32", False, None),
     ("small f32 gqa window ragged", 1, 8, 2, 200, 64, "float32", True, 48),
+    ("bf16 gqa hd64 ragged window", 1, 8, 2, 200, 64, "bfloat16", True, 48),
+    ("bf16 ragged S=1000 causal", 1, 16, 16, 1000, 128, "bfloat16", True,
+     None),
 ]
 K1B_HEADLINE = "gpt-65b train S=2048"
 

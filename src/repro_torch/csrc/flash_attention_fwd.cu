@@ -9,34 +9,63 @@
 // masked scores are -1e30, the denominator is clamped at 1e-30; `out` in
 // the input type, `lse = m + log(l)` in f32 (kept for the backward pass).
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): for a
-// causal prefill at GPT-65B width (S = 2048, 64 heads, hd 128, bf16) the
-// work is 2 * S^2 * hd * H ~= 6.9e10 FLOP (QK^T and PV, halved by the
-// mask) -> 69 us at the tensor-core peak, while q, k, v and o are ~134 MB
-// -> 40 us at the memory rate. So the bound is compute, and only the
-// tensor cores can approach it.
+// Bound on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): for a causal
+// prefill at GPT-65B width (S = 2048, 64 heads, hd 128, bf16) the work is
+// 2 * S^2 * hd * H ~= 6.9e10 FLOP (QK^T and PV, halved by the mask) ->
+// 69 us on the tensor cores, while q, k, v and o are ~134 MB -> 40 us at
+// the memory rate. So the bound is the tensor cores' rate, which only
+// `wgmma` reaches.
 //
-// Design (simple first; wgmma, TMA, cp.async pipelining and warp
-// specialisation come later). Both kernels take one block per (64-row Q
-// tile, q head, batch), stage K/V tiles in shared memory and keep the
-// online softmax (running max m, denominator l, rescale by exp(m - m'))
-// in f32 registers. KV tiles that lie wholly above the causal diagonal of
-// the block are skipped: every score in them is masked for every row, and
-// the rows' running max is already finite there, so they add exactly 0.
-// Heavy (late) Q tiles are launched first.
+// bf16 design (`flash_fwd_wgmma`): a block per (128-row Q tile, q head,
+// batch), heavy (late) Q tiles launched first; 288 threads: two consumer
+// warpgroups of 64 query rows each and one producer warp.
+//  * Loads: one thread of the producer warp starts TMA copies: Q once,
+//    then K and V tiles of 128 keys into a two-stage ring in shared
+//    memory. A `full` mbarrier per stage counts the bytes in (expect_tx);
+//    an `empty` mbarrier per stage takes one arrival from each of the 8
+//    consumer warps once their products on the stage have completed, and
+//    the producer waits on it before refilling the stage. The tensor maps
+//    are 3-D, (hd, S, B*H), built on the host for each call and passed as
+//    `__grid_constant__ const CUtensorMap`; a box is (64, rows, 1): 64
+//    bf16 columns are the 128 bytes that the 128-byte swizzle spans, so hd
+//    128 takes two boxes per tile. Rows past S are zero-filled and never
+//    read from the next head. `cuTensorMapEncodeTiled` is looked up at run
+//    time (`cudaGetDriverEntryPointByVersion`, or the unversioned lookup
+//    before CUDA 12.5), so the library needs no -lcuda.
+//  * S = Q K^T: `wgmma.m64n128k16`, both operands in shared memory, K in
+//    its natural K-major layout, 128-byte swizzle descriptors matching
+//    the TMA boxes.
+//  * Online softmax in f32 registers with `exp2f`: scores scaled by
+//    scale * log2(e), running max m, rescale of O and l by exp2(m - m'),
+//    l summed from the unrounded f32 probabilities.
+//  * O += P V: `wgmma.m64n{hd}k16` with P from registers (the S
+//    accumulator rounded to bf16 is the register-A fragment) and V from
+//    shared memory with the transpose bit (V's rows are the reduction
+//    dimension): no transposed copy of V.
+//  * Tiles wholly above the causal diagonal or below the window of every
+//    row of the block are skipped: their scores are -1e30 against a
+//    running max that is finite, so they add exactly 0. (A block where
+//    some row sees no key at all visits every tile: the reference then
+//    averages every masked score.) Per-element masks run only on tiles
+//    that cross an edge.
+//  * Epilogue: O / max(l, 1e-30) stored as bf16 from registers, lse in
+//    f32.
+//   hd 128: 32 KB of Q + 2 stages x (32 KB K + 32 KB V) = 160 KB of
+//   dynamic shared memory (164,904 B with the barriers and the 1 KB
+//   alignment slack), 168 registers a thread (`-Xptxas -v`, CUDA 12.8,
+//   no spills): one block, 9 warps, per SM. hd 64: 82,984 B, 154
+//   registers: one block per SM (the registers of 288 threads).
+// Later work: `setmaxnreg` to move registers from the producer to the
+// consumers, ping-pong scheduling of the two consumer warpgroups (one's
+// softmax under the other's products), overlap of the next S product with
+// the current softmax inside a warpgroup, and a persistent grid.
 //
-// * bf16 (the serving path): 4 warps, each owning 16 query rows, issue
-//   `mma.sync.m16n8k16` bf16 products with f32 accumulation for S = Q K^T
-//   and O += P V over 64-key tiles. Q stays in registers as A fragments;
-//   K is staged row-major and V transposed (padded rows, so fragment
-//   loads hit 32 distinct banks); the S accumulator is reused in
-//   registers as the A fragment of P (rounded to bf16 for the product,
-//   while l sums the f32 probabilities).
-// * f32: the tensor cores would round to TF32, far outside the 1e-5
-//   tolerance, so f32 runs on the CUDA cores: two threads per query row,
-//   each owning half of the row's hd in interleaved float4 chunks, K/V
-//   tiles of 32 keys staged as f32 and read by broadcast.
+// f32 (`flash_fwd_f32`): the tensor cores would round to TF32, far
+// outside the 1e-5 tolerance, so f32 runs on the CUDA cores: two threads
+// per query row, each owning half of the row's hd in interleaved float4
+// chunks, K/V tiles of 32 keys staged as f32 and read by broadcast.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,8 +73,8 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block (both kernels)
-constexpr int THREADS = 128;    // 4 warps
+constexpr int BQ = 64;          // query rows per block (f32 kernel)
+constexpr int THREADS = 128;    // f32 kernel: 4 warps
 constexpr float NEG_BIG = -1e30f;
 
 typedef __nv_bfloat16 bf16;
@@ -67,13 +96,109 @@ __device__ __forceinline__ float masked(float x, int col, int qpos, int Skv,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// bf16: wgmma kernel fed by TMA through an mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int MK = 64;  // keys per tile
+constexpr int WQ = 128;                  // query rows per block
+constexpr int WK = 128;                  // keys per tile
+constexpr int STAGES = 2;                // K/V ring depth
+constexpr int W_THREADS = 2 * 128 + 32;  // two consumer warpgroups + producer
+constexpr int SW = 128;                  // bytes of a swizzled row (64 bf16)
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int HD>
+struct WgLayout {
+  static constexpr int NH = HD / 64;             // 64-column boxes per row
+  static constexpr int Q_BYTES = NH * WQ * SW;   // one Q tile
+  static constexpr int KV_BYTES = NH * WK * SW;  // one K (or V) tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // + Q barrier, full and empty per stage; + slack to align to 1024
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed; a wait
+// that never completes (a broken ring) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: 8-row groups 1024 B
+// apart (SBO); `lbo` is the MN-direction step between 64-column boxes of
+// an MN-major operand (unused for K-major)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from reading (or reusing) registers of an
+// asynchronous wgmma before it has been waited on
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -81,152 +206,240 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// d += a * b for one m16n8k16 tile (A row-major 16x16, B col-major 16x8)
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// d (m64 x n128) += A (smem, K-major) * B (smem, K-major); scale_d 0 starts the sum
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64 x n128) += A (registers) * B (smem, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n64) += A (registers) * B (smem, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (HD == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
-              float* __restrict__ lse, int Hq, int Hk, int Sq, int Skv, int q0,
-              int causal, int window, float scale) {
-  constexpr int KS = HD + 8;  // K row stride (bf16): fragment loads hit
-  constexpr int VS = MK + 8;  // V^T row stride       distinct banks
-  __shared__ __align__(16) bf16 ks[MK * KS];
-  __shared__ __align__(16) bf16 vt[HD * VS];
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                float* __restrict__ lse, int Hq, int Hk, int Sq, int Skv,
+                int q0, int causal, int window, float scale) {
+  using L = WgLayout<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
+  const uint32_t q_bar = base + L::BAR_OFF;
+  const uint32_t full_bar = q_bar + 8, empty_bar = full_bar + 8 * STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hk);
-  const int64_t q_base = (int64_t)(b * Hq + h) * Sq * HD;
-  const int64_t kv_base = (int64_t)(b * Hk + hk) * Skv * HD;
-  const int row0 = qt * BQ + warp * 16 + g;  // this thread's rows: row0
-  const int row1 = row0 + 8;                 // and row0 + 8
-  const int qp0 = q0 + row0, qp1 = q0 + row1;
 
-  uint32_t qa[HD / 16][4];  // Q as A fragments, one per 16-wide k step
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    const bf16* r0 = q + q_base + (int64_t)row0 * HD + c;
-    const bf16* r1 = q + q_base + (int64_t)row1 * HD + c;
-    qa[kk][0] = row0 < Sq ? ld32(r0) : 0u;
-    qa[kk][1] = row1 < Sq ? ld32(r1) : 0u;
-    qa[kk][2] = row0 < Sq ? ld32(r0 + 8) : 0u;
-    qa[kk][3] = row1 < Sq ? ld32(r1 + 8) : 0u;
+  // the KV tiles some row of the block can see
+  const int first = qt * WQ, last = min(first + WQ, Sq) - 1;
+  int kv_lo = window >= 0 ? max(0, q0 + first - window + 1) : 0;
+  int kv_hi = causal ? min(Skv, q0 + last + 1) : Skv;
+  if (window >= 0 &&
+      q0 + last - window + 1 > (causal ? min(Skv - 1, q0 + last) : Skv - 1)) {
+    kv_lo = 0;  // the last row sees no key: the reference averages every
+    kv_hi = Skv;  // masked score, so every tile is visited
   }
+  const int t_lo = kv_lo / WK, ntiles = (kv_hi + WK - 1) / WK - t_lo;
 
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
-
-  const int kv_end = kv_limit(Skv, causal, q0, qt, Sq);
-  const int ntiles = (kv_end + MK - 1) / MK;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * MK;
-    __syncthreads();  // the previous tile is fully consumed
-    // K row-major: neighbouring threads read neighbouring 16-byte chunks
-    for (int idx = tid; idx < MK * HD / 8; idx += THREADS) {
-      const int j = idx / (HD / 8), d = (idx % (HD / 8)) * 8;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Skv)
-        kk = *reinterpret_cast<const uint4*>(k + kv_base +
-                                             (int64_t)(k0 + j) * HD + d);
-      *reinterpret_cast<uint4*>(&ks[j * KS + d]) = kk;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 8);  // one arrival per consumer warp
     }
-    // V transposed: neighbouring threads take neighbouring keys, so the
-    // 2-byte stores of one warp land in neighbouring shared addresses
-    for (int idx = tid; idx < MK * HD / 8; idx += THREADS) {
-      const int j = idx % MK, d = (idx / MK) * 8;
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Skv)
-        vv = *reinterpret_cast<const uint4*>(v + kv_base +
-                                             (int64_t)(k0 + j) * HD + d);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(d + i) * VS + j] = ve[i];
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for 16 rows x 64 keys per warp
-    float s[MK / 8][4];
+  if (threadIdx.x >= 256) {  // producer warp: one thread starts every copy
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_bar, L::Q_BYTES);
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int x = 0; x < L::NH; ++x)
+        tma_load(q_s + x * WQ * SW, &tq, q_bar, x * 64, first, b * Hq + h);
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty_bar + 8 * st, (i / STAGES - 1) & 1);
+        const uint32_t fb = full_bar + 8 * st;
+        mbar_expect_tx(fb, 2 * L::KV_BYTES);
+        const int k0 = (t_lo + i) * WK;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* kr = &ks[(n * 8 + g) * KS + kk * 16 + t4 * 2];
-        mma16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
+        for (int x = 0; x < L::NH; ++x) {
+          tma_load(k_s + st * L::KV_BYTES + x * WK * SW, &tk, fb, x * 64, k0,
+                   b * Hk + hk);
+          tma_load(v_s + st * L::KV_BYTES + x * WK * SW, &tv, fb, x * 64, k0,
+                   b * Hk + hk);
+        }
       }
     }
+    return;
+  }
 
+  // consumers: warpgroup wg owns rows [first + 64 wg, +64); a thread holds
+  // rows r0 and r0 + 8 of its warp's 16, columns 8 n + 2 t4 (+1)
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = first + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+  const int qp0 = q0 + r0, qp1 = q0 + r1;
+  const float sl2 = scale * LOG2E;
+
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float sacc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+  float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % STAGES;
+    const int k0 = (t_lo + i) * WK;
+    mbar_wait(full_bar + 8 * st, (i / STAGES) & 1);
+
+    // S = Q K^T over hd in k16 steps (32 bytes along a swizzled row)
+    fence_regs<64>(sacc);
+    wg_fence();
+#pragma unroll
+    for (int x = 0; x < L::NH; ++x)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n128(
+            sacc, sw128_desc(q_s + x * WQ * SW + wg * 64 * SW + kk * 32, 0),
+            sw128_desc(k_s + st * L::KV_BYTES + x * WK * SW + kk * 32, 0),
+            (x | kk) != 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs<64>(sacc);
+
+    // online softmax in the log2 domain
+    const bool edge = k0 + WK > Skv || (causal && k0 + WK - 1 > q0 + first) ||
+                      (window >= 0 && q0 + last - k0 >= window);
     float mt0 = NEG_BIG, mt1 = NEG_BIG;
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n) {
-      const int col = k0 + n * 8 + t4 * 2;
-      s[n][0] = masked(s[n][0] * scale, col, qp0, Skv, causal, window);
-      s[n][1] = masked(s[n][1] * scale, col + 1, qp0, Skv, causal, window);
-      s[n][2] = masked(s[n][2] * scale, col, qp1, Skv, causal, window);
-      s[n][3] = masked(s[n][3] * scale, col + 1, qp1, Skv, causal, window);
-      mt0 = fmaxf(mt0, fmaxf(s[n][0], s[n][1]));
-      mt1 = fmaxf(mt1, fmaxf(s[n][2], s[n][3]));
+    for (int n = 0; n < WK / 8; ++n) {
+      float* s = sacc + 4 * n;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] *= sl2;
+      if (edge) {
+        const int col = k0 + n * 8 + t4 * 2;
+        s[0] = masked(s[0], col, qp0, Skv, causal, window);
+        s[1] = masked(s[1], col + 1, qp0, Skv, causal, window);
+        s[2] = masked(s[2], col, qp1, Skv, causal, window);
+        s[3] = masked(s[3], col + 1, qp1, Skv, causal, window);
+      }
+      mt0 = fmaxf(mt0, fmaxf(s[0], s[1]));
+      mt1 = fmaxf(mt1, fmaxf(s[2], s[3]));
     }
-    // a row's 64 scores sit in the 4 threads of its quad
+    // a row's 128 scores sit in the 4 threads of its quad
     mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
     mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
     mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
     mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
     const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     l0 *= c0;  // per-thread partial sums; the quad is summed at the end
     l1 *= c1;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
+      oacc[4 * n] *= c0;
+      oacc[4 * n + 1] *= c0;
+      oacc[4 * n + 2] *= c1;
+      oacc[4 * n + 3] *= c1;
     }
+    uint32_t pa[WK / 16][4];  // P as register-A fragments, one per k16 step
 #pragma unroll
-    for (int n = 0; n < MK / 8; ++n) {
-      s[n][0] = expf(s[n][0] - m0);
-      s[n][1] = expf(s[n][1] - m0);
-      s[n][2] = expf(s[n][2] - m1);
-      s[n][3] = expf(s[n][3] - m1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
+    for (int j = 0; j < WK / 16; ++j) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p[e] = exp2f(sacc[8 * j + e] - ((e & 2) ? m1 : m0));
+      l0 += p[0] + p[1] + p[4] + p[5];
+      l1 += p[2] + p[3] + p[6] + p[7];
+      pa[j][0] = pack2(p[0], p[1]);
+      pa[j][1] = pack2(p[2], p[3]);
+      pa[j][2] = pack2(p[4], p[5]);
+      pa[j][3] = pack2(p[6], p[7]);
     }
 
-    // O += P V: the S accumulator layout is the A fragment layout of P
+    // O += P V: V's rows (keys) are the reduction dimension, so V is the
+    // MN-major operand; 16 keys are 2048 bytes of a box
+    fence_regs<HD / 2>(oacc);
+    fence_regs<4 * (WK / 16)>(&pa[0][0]);
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < MK / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack2(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack2(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack2(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack2(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const bf16* vr = &vt[(n * 8 + g) * VS + j * 16 + t4 * 2];
-        mma16816(acc[n], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int j = 0; j < WK / 16; ++j)
+      wgmma_pv<HD>(oacc, pa[j],
+                   sw128_desc(v_s + st * L::KV_BYTES + j * 16 * SW, WK * SW));
+    wg_commit();
+    wg_wait0();
+    fence_regs<HD / 2>(oacc);
+    fence_regs<4 * (WK / 16)>(&pa[0][0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * st);  // the stage is free
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -234,20 +447,23 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  const float i0 = 1.f / lc0, i1 = 1.f / lc1;
+  const int64_t q_base = (int64_t)(b * Hq + h) * Sq * HD;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
     const int c = n * 8 + t4 * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)row0 * HD + c) =
-          pack2(acc[n][0] / lc0, acc[n][1] / lc0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)row1 * HD + c) =
-          pack2(acc[n][2] / lc1, acc[n][3] / lc1);
+    if (r0 < Sq)
+      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)r0 * HD + c) =
+          pack2(oacc[4 * n] * i0, oacc[4 * n + 1] * i0);
+    if (r1 < Sq)
+      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)r1 * HD + c) =
+          pack2(oacc[4 * n + 2] * i1, oacc[4 * n + 3] * i1);
   }
   if (t4 == 0) {
+    // a row that saw only masked scores keeps the reference's -1e30
     const int64_t lb = (int64_t)(b * Hq + h) * Sq;
-    if (row0 < Sq) lse[lb + row0] = m0 + logf(lc0);
-    if (row1 < Sq) lse[lb + row1] = m1 + logf(lc1);
+    if (r0 < Sq) lse[lb + r0] = m0 <= NEG_BIG ? NEG_BIG : m0 * LN2 + logf(lc0);
+    if (r1 < Sq) lse[lb + r1] = m1 <= NEG_BIG ? NEG_BIG : m1 * LN2 + logf(lc1);
   }
 }
 
@@ -370,15 +586,78 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (half == 0) lse[(int64_t)(b * Hq + h) * Sq + row] = m + logf(lc);
 }
 
-template <typename T, int HD, typename K>
-void launch(K kernel, const void* q, const void* k, const void* v, void* o,
-            float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
-            int causal, int window, float scale, cudaStream_t stream) {
+template <int HD>
+void launch_f32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
+                int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hk, Sq, Skv, q0,
-      causal, window, scale);
+  flash_fwd_f32<HD><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hk, Sq,
+      Skv, q0, causal, window, scale);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (hd, rows, planes) bf16 tensor map with (64, box_rows, 1) boxes,
+// 128-byte swizzle, zero fill past the edges
+bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows,
+                int planes, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)rows * hd * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
+                int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, HD, Sq, B * Hq, WQ) ||
+      !tensor_map(&tk, k, HD, Skv, B * Hk, WK) ||
+      !tensor_map(&tv, v, HD, Skv, B * Hk, WK))
+    return (int)cudaErrorInvalidValue;
+  const int smem = WgLayout<HD>::SMEM;
+  const int err = (int)cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
+  flash_fwd_wgmma<HD><<<grid, W_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, Hq, Hk, Sq, Skv, q0, causal,
+      window, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -394,17 +673,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
-    launch<float, 64>(flash_fwd_f32<64>, q, k, v, o, lse, B, Hq, Hk, Sq, Skv,
-                      q0, causal, window, scale, st);
+    launch_f32<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
+                   scale, st);
   else if (dtype == 0 && hd == 128)
-    launch<float, 128>(flash_fwd_f32<128>, q, k, v, o, lse, B, Hq, Hk, Sq,
-                       Skv, q0, causal, window, scale, st);
+    launch_f32<128>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
+                    scale, st);
   else if (dtype == 1 && hd == 64)
-    launch<bf16, 64>(flash_fwd_mma<64>, q, k, v, o, lse, B, Hq, Hk, Sq, Skv,
-                     q0, causal, window, scale, st);
+    return launch_bf16<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
+                           window, scale, st);
   else if (dtype == 1 && hd == 128)
-    launch<bf16, 128>(flash_fwd_mma<128>, q, k, v, o, lse, B, Hq, Hk, Sq,
-                      Skv, q0, causal, window, scale, st);
+    return launch_bf16<128>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
+                            window, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -29,28 +29,61 @@ def _need_card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _k1_cases(with_q0):
+    """Ragged GQA cases (S = 200, 8/2 heads, hd 128) in both dtypes, then
+    the shapes of chip_smoke.py's K1 gates (``K1_SHAPES``, or
+    ``K1B_SHAPES`` without q0): GPT-65B and qwen3-4b widths, and the bf16
+    kernels' edges (GQA, window and q0 at hd 64, ragged S = 1000)."""
+    masks = [(True, None, 0), (False, None, 0),
+             (True, 40, 5) if with_q0 else (True, 48, 0)]
+    cases = [pytest.param(2, 8, 2, 200, 128, dt, c, w, q0,
+                          id=f"{dt}-ragged-{'causal' if c else 'full'}"
+                             f"{'' if w is None else f'-w{w}'}")
+             for dt in ("float32", "bfloat16") for (c, w, q0) in masks]
+    card = [
+        ("gpt-65b-2048", 1, 64, 64, 2048, 128, "bfloat16", True, None, 0),
+        ("gpt-65b-1024", 1, 64, 64, 1024, 128, "bfloat16", True, None, 0),
+        ("gpt-65b-512", 1, 64, 64, 512, 128, "bfloat16", True, None, 0),
+        ("qwen3-4b-gqa-1024", 1, 32, 8, 1024, 128, "bfloat16", True, None,
+         0),
+        ("f32-full", 2, 4, 4, 256, 64, "float32", False, None, 0),
+        ("f32-gqa-window-q0", 1, 8, 2, 200, 64, "float32", True, 48, 16),
+        ("bf16-gqa-hd64-ragged-window-q0", 1, 8, 2, 200, 64, "bfloat16",
+         True, 48, 16),
+        ("bf16-ragged-1000", 1, 16, 16, 1000, 128, "bfloat16", True, None,
+         0),
+    ]
+    if not with_q0:   # the backward's table: no q0, and two GPT-65B rows
+        card = [(c[0].replace("-q0", ""),) + c[1:-1] + (0,) for c in card
+                if c[0] not in ("gpt-65b-1024", "gpt-65b-512")]
+    return cases + [pytest.param(*c[1:], id=c[0]) for c in card]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_hopper_kernel_matches_plain(dtype):
-    """K1 on the card against its plain version: GQA, ragged tiles
-    (S = 200), causal, non-causal, and window + q0."""
+@pytest.mark.parametrize("B,Hq,Hk,S,hd,dtype,causal,window,q0",
+                         _k1_cases(with_q0=True))
+def test_hopper_kernel_matches_plain(B, Hq, Hk, S, hd, dtype, causal, window,
+                                     q0):
+    """K1 on the card against its plain version at the card gates' shapes:
+    bf16 2e-2 (atol and rtol) and 1e-2 relative norm, f32 1e-5, lse
+    1e-3; one launch counted per call."""
     _need_card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(2, 8, 200, 128, device="cuda", generator=g).to(dt)
-    k = torch.randn(2, 2, 200, 128, device="cuda", generator=g).to(dt)
-    v = torch.randn(2, 2, 200, 128, device="cuda", generator=g).to(dt)
+    q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
+    k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
+    v = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
-    for kw in (dict(causal=True), dict(causal=False),
-               dict(causal=True, window=40, q0=5)):
-        before = fa.fwd_launches
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert fa.fwd_launches == before + 1
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
-        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
-                                   rtol=tol)
-        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    kw = dict(causal=causal, window=window, q0=q0)
+    before = fa.fwd_launches
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    rel = (out.float() - ref.float()).norm() / ref.float().norm()
+    assert float(rel) <= 1e-2
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
 @pytest.mark.gpu
@@ -91,32 +124,35 @@ def test_serve_engine_on_the_card_matches_in_memory_reference():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bwd_kernel_matches_plain_and_is_deterministic(dtype):
-    """K1's backward on the card against its plain version (GQA 8/2,
-    ragged S = 200, causal, non-causal, window), and the same bits on a
-    second launch (no float atomics)."""
+@pytest.mark.parametrize("B,Hq,Hk,S,hd,dtype,causal,window,q0",
+                         _k1_cases(with_q0=False))
+def test_bwd_kernel_matches_plain_and_is_deterministic(B, Hq, Hk, S, hd,
+                                                       dtype, causal, window,
+                                                       q0):
+    """K1's backward on the card against its plain version at the card
+    gates' shapes (bf16 2e-2 and 1e-2 relative norm, f32 1e-5), and the
+    same bits on a second launch (no float atomics)."""
     _need_card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, do = (torch.randn(2, 8, 200, 128, device="cuda", generator=g).to(dt)
+    q, do = (torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
              for _ in range(2))
-    k, v = (torch.randn(2, 2, 200, 128, device="cuda", generator=g).to(dt)
+    k, v = (torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
             for _ in range(2))
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
-    for kw in (dict(causal=True), dict(causal=False),
-               dict(causal=True, window=48)):
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        before = fa.bwd_launches
-        got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
-        again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
-        torch.cuda.synchronize()
-        assert fa.bwd_launches == before + 2
-        want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
-        for a, b, w in zip(got, again, want):
-            assert torch.equal(a, b)
-            torch.testing.assert_close(a.float(), w.float(), atol=tol,
-                                       rtol=tol)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)
+        rel = (a.float() - w.float()).norm() / w.float().norm()
+        assert float(rel) <= 1e-2
 
 
 @pytest.mark.gpu

@@ -76,6 +76,35 @@ def test_plain_matches_model_attention_gqa_window_q0(G, window, q0):
     assert lse.shape == (2, Hk * G, S) and lse.dtype == torch.float32
 
 
+# the bf16 rows that chip_smoke.py adds to its K1 gates for the redesigned
+# kernels, with the head count cut (heads are independent; the GQA ratio
+# kept): (Hq, Hk, S, hd, causal, window, q0)
+BF16_EDGE_FWD = [
+    (4, 1, 200, 64, True, 48, 16),      # GQA 4:1, ragged S, window, q0
+    (2, 2, 1000, 128, True, None, 0),   # ragged S = 1000, causal
+]
+
+
+@pytest.mark.parametrize("Hq,Hk,S,hd,causal,window,q0", BF16_EDGE_FWD)
+def test_plain_matches_model_attention_bf16_edges(Hq, Hk, S, hd, causal,
+                                                  window, q0):
+    """At the card gates' bf16 edge shapes, the plain forward (what the
+    gates hold the kernel against) matches the model's chunked jnp
+    attention: both sum in f32 and round once to bf16, so they part by
+    about one bf16 ulp. Held at the gates' bf16 tolerance, 2e-2 (atol and
+    rtol) and 1e-2 relative norm."""
+    (q, k, v), (tq, tk, tv) = _inputs((1, Hq, S, hd), (1, Hk, S, hd),
+                                      jnp.bfloat16, 5)
+    want = np.asarray(jnp_flash(q, k, v, causal=causal, window=window,
+                                q0=q0), np.float32)
+    got, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        window=window, q0=q0)
+    assert got.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
+
+
 def test_plain_gqa_reads_head_over_group():
     """Head h of a GQA call equals an MHA call on KV head h // G — not
     h % Hk."""
@@ -200,6 +229,41 @@ def test_autograd_function_matches_reference_vjp(B, Hk, G, S, hd, causal,
     np.testing.assert_allclose(o.detach().numpy(), out, atol=1e-5)
     for t, w in zip((tq, tk, tv), (dq, dk, dv)):
         np.testing.assert_allclose(t.grad.numpy(), w, atol=1e-5)
+
+
+# the bf16 rows of chip_smoke.py's K1 backward gates, heads cut as above:
+# (Hk, G, S, hd, causal, window)
+BF16_EDGE_BWD = [
+    (1, 4, 200, 64, True, 48),      # GQA 4:1, ragged S, window
+    (2, 1, 1000, 128, True, None),  # ragged S = 1000, causal
+]
+
+
+@pytest.mark.parametrize("Hk,G,S,hd,causal,window", BF16_EDGE_BWD)
+def test_bwd_plain_matches_reference_vjp_bf16_edges(Hk, G, S, hd, causal,
+                                                    window):
+    """At the card gates' bf16 edge shapes, ``flash_attention_bwd_plain``
+    (what the gates hold the kernel against) matches ``jax.vjp`` of the
+    model's attention in bf16. The reference takes delta from its f32
+    ``out``, the port from ``out`` rounded to bf16 (2^-8 relative per
+    element), and both round dq, dk, dv once to bf16: held at the gates'
+    bf16 tolerance, 2e-2 (atol and rtol) and 1e-2 relative norm."""
+    arrs = _bwd_inputs(1, Hk, G, S, hd, 6)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    tq, tk, tv, tdo = (tensor_from_numpy(np.asarray(a))
+                       for a in (jq, jk, jv, jdo))
+    _, vjp = jax.vjp(lambda a, b, c: jnp_flash(
+        a, b, c, causal=causal, window=window), jq, jk, jv)
+    want = [np.asarray(t, np.float32) for t in vjp(jdo)]
+    out, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        window=window)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, tdo, lse,
+                                       causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        np.testing.assert_allclose(g, w, atol=2e-2, rtol=2e-2)
+        assert np.linalg.norm(g - w) <= 1e-2 * np.linalg.norm(w)
 
 
 def test_bwd_refuses_a_query_offset_and_foreign_devices():
