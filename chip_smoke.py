@@ -12,8 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    PyTorch library call: K1 forward, K1 backward (also run twice and
    required bit-identical), K2 fused Adam (also the two-stage
    ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one launch)
-   and K3 selective scan (falcon-mamba-7b's prefill shapes and the f32
-   sweep; run twice, bit-identical; no library call computes it).
+   and K3 selective scan (falcon-mamba-7b's prefill shapes, the f32
+   sweep and the edges of the kernel's tiling: B/C slices not 16-byte
+   aligned, states 1, 3 and 13, d_inner off the 16-byte copies; run
+   twice, bit-identical; the headline row also timed from a
+   ``torch.profiler`` trace; no library call computes it).
 4. serve — ``ServeEngine`` at GPT-65B full width (depth cut to
    ``SERVE_LAYERS``), bf16 params tiered across host and SSD, three requests
    (2048/1024/512-token prompts, 16 new tokens each) with a mid-run
@@ -135,22 +138,36 @@ K2_HEADLINE = "gpt-65b embed bf16 step 1"
 # tests/test_kernels.py's K2 tolerances (atol; rtol 1e-7): p', m', v', bf16 p'
 K2_TOL = (1e-6, 1e-7, 1e-7, 2e-2)
 
-# K3: (name, B, S, di, st, dtype). The falcon-mamba-7b rows are the
-# prefill's shapes and types (d_inner 8192, state 16; x, B, C, y bf16 with
-# B and C column slices of the x_proj output, row stride dt_rank + 2 st;
-# dt, A, D f32); then tests/test_kernels.py's f32 sweep, and a case ragged
-# in S, di and st for the kernel's own tiling (256 / 8 channels x 32 steps)
+K3_DT_RANK = 256                 # falcon-mamba-7b's, for the B/C row stride
+# K3: (name, B, S, di, st, dtype, offset). B and C are column slices
+# of one projection whose rows hold ``offset`` + 2 st values, B starting
+# at column ``offset``. The falcon-mamba-7b rows are the prefill's shapes
+# and types (d_inner 8192, state 16; x, B, C, y bf16, offset dt_rank, so
+# the slices are 16-byte aligned; dt, A, D f32); then tests/test_kernels.py's
+# f32 sweep, and edges of the kernel's own tiling (32 channels x 32-step
+# chunks; K states a thread, L lanes a channel; 16-byte or element copies):
+# ragged S, di and st; B/C slices at offset 7 (not 16-byte aligned);
+# st = 1 (K = 1) and 3 (one lane a channel); di not a multiple of 8 (bf16
+# x) or 4 (f32 x and dt), where x and dt go by element copies
 K3_SHAPES = [
-    ("falcon-mamba-7b prefill B=1 S=2048", 1, 2048, 8192, 16, "bfloat16"),
-    ("falcon-mamba-7b prefill B=2 S=2048", 2, 2048, 8192, 16, "bfloat16"),
-    ("f32 (1,64,128,8)", 1, 64, 128, 8, "float32"),
-    ("f32 (2,64,256,16)", 2, 64, 256, 16, "float32"),
-    ("f32 (1,128,512,16)", 1, 128, 512, 16, "float32"),
-    ("f32 (2,96,384,4)", 2, 96, 384, 4, "float32"),
-    ("f32 ragged (3,77,1000,5)", 3, 77, 1000, 5, "float32"),
+    ("falcon-mamba-7b prefill B=1 S=2048", 1, 2048, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("falcon-mamba-7b prefill B=2 S=2048", 2, 2048, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("f32 (1,64,128,8)", 1, 64, 128, 8, "float32", K3_DT_RANK),
+    ("f32 (2,64,256,16)", 2, 64, 256, 16, "float32", K3_DT_RANK),
+    ("f32 (1,128,512,16)", 1, 128, 512, 16, "float32", K3_DT_RANK),
+    ("f32 (2,96,384,4)", 2, 96, 384, 4, "float32", K3_DT_RANK),
+    ("f32 ragged (3,77,1000,5)", 3, 77, 1000, 5, "float32", K3_DT_RANK),
+    ("bf16 unaligned B/C (1,1000,1000,13)", 1, 1000, 1000, 13, "bfloat16",
+     7),
+    ("falcon-mamba-7b width B=2 S=333", 2, 333, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("f32 st=1 (2,100,256,1)", 2, 100, 256, 1, "float32", K3_DT_RANK),
+    ("f32 st=3 di=301 (1,77,301,3)", 1, 77, 301, 3, "float32", 7),
+    ("bf16 di=999 (2,100,999,16)", 2, 100, 999, 16, "bfloat16", 7),
 ]
 K3_HEADLINE = "falcon-mamba-7b prefill B=1 S=2048"
-K3_DT_RANK = 256                 # falcon-mamba-7b's, for the B/C row stride
 K3_ATOL_F32 = 1e-4               # tests/test_kernels.py's selective-scan atol
 # h_final: max |kernel - plain| over max |plain|. h is an elementwise f32
 # recurrence on both sides (no sum over states), so they differ only in
@@ -875,18 +892,18 @@ def k3_work(B, S, di, st, dtype):
     return nbytes, B * S * di * (6 * st + 3), B * S * di * st
 
 
-def k3_inputs(torch, B, S, di, st, dtype, seed):
+def k3_inputs(torch, B, S, di, st, dtype, offset, seed):
     """The model path's inputs (``dtype`` x, B, C with B and C strided
-    slices of one projection; f32 dt, A, D). bf16 rows: falcon-mamba-7b's
-    S4D-real A and a dt around softplus(-4) ~ 0.018; f32 rows:
-    tests/test_kernels.py's distributions."""
+    slices of one projection, from column ``offset``; f32 dt, A, D).
+    bf16 rows: falcon-mamba-7b's S4D-real A and a dt around softplus(-4)
+    ~ 0.018; f32 rows: tests/test_kernels.py's distributions."""
     dt_ = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(B, S, di, device="cuda", generator=g) * 0.5).to(dt_)
-    proj = torch.randn(B, S, K3_DT_RANK + 2 * st, device="cuda",
+    proj = torch.randn(B, S, offset + 2 * st, device="cuda",
                        generator=g).to(dt_)
-    Bc = proj[..., K3_DT_RANK:K3_DT_RANK + st]
-    Cc = proj[..., K3_DT_RANK + st:]
+    Bc = proj[..., offset:offset + st]
+    Cc = proj[..., offset + st:]
     if dtype == "bfloat16":
         dt = torch.nn.functional.softplus(
             torch.randn(B, S, di, device="cuda", generator=g) * 0.5 - 4.0)
@@ -901,6 +918,27 @@ def k3_inputs(torch, B, S, di, st, dtype, seed):
     return x, dt, A, Bc, Cc, D
 
 
+def profiled_kernel_ms(torch, fn, kernel: str, reps: int) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler`` (CUDA activity):
+    the mean device duration of the kernels whose name holds ``kernel``
+    (None if the trace has none) and the host's wall time per call up to
+    the last enqueue, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in evs)
+    dev = sum(e.self_device_time_total for e in evs)
+    return {"kernel_ms": dev / n / 1e3 if n else None, "kernels": n,
+            "host_ms_per_call": 1e3 * host / reps}
+
+
 def phase_k3(torch, k3, report):
     """K3 against its plain version on the card: the model path's bf16
     shapes and the f32 sweep; two launches bitwise equal; timed beside
@@ -908,8 +946,8 @@ def phase_k3(torch, k3, report):
     scan, so there is no library time)."""
     exp_rate = sfu_exps_per_s()
     rows = []
-    for (name, B, S, di, st, dts) in K3_SHAPES:
-        ins = k3_inputs(torch, B, S, di, st, dts, 300 + len(rows))
+    for (name, B, S, di, st, dts, offset) in K3_SHAPES:
+        ins = k3_inputs(torch, B, S, di, st, dts, offset, 300 + len(rows))
         y, h = k3.selective_scan_fwd(*ins)
         y2, h2 = k3.selective_scan_fwd(*ins)
         torch.cuda.synchronize()
@@ -948,6 +986,15 @@ def phase_k3(torch, k3, report):
                "f32_ops_ms": ops / PEAK_FLOPS["float32"] * 1e3,
                "exp_ms": exps / exp_rate * 1e3, "exps_per_s": exp_rate,
                "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
+        if name == K3_HEADLINE:   # the kernel's own duration, beside ms
+            row["profiler"] = profiled_kernel_ms(
+                torch, lambda: k3.selective_scan_fwd(*ins),
+                "selective_scan_kernel", 20)
+            report(f"K3 {name}: torch.profiler kernel duration "
+                   f"{row['profiler']['kernel_ms']} ms over "
+                   f"{row['profiler']['kernels']} launches, host "
+                   f"{row['profiler']['host_ms_per_call']:.4f} ms a call, "
+                   f"CUDA events {ms:.4f} ms a call")
         rows.append(row)
         report(f"K3 {name}: err {err:.3e} (tol {tol}) rel_err "
                f"{rel_err:.3e} h rel {h_rel:.3e} (tol {K3_H_RTOL}) "

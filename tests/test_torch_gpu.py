@@ -215,36 +215,52 @@ def test_offload_engine_alpha_is_bitwise_on_the_card():
     assert runs[0] == runs[1]
 
 
+# (B, S, di, st, offset of B in the projection's rows); the first two in
+# both dtypes, then chip_smoke.py's K3 edge rows in their dtype
+_K3_EDGES = [(3, 77, 1000, 5, 7), (2, 130, 512, 16, 7)]
+_K3_CASES = (
+    [pytest.param(dt, *c, id=f"{dt}-{'-'.join(map(str, c))}")
+     for dt in ("float32", "bfloat16") for c in _K3_EDGES]
+    + [pytest.param("bfloat16", 1, 1000, 1000, 13, 7,
+                    id="bf16-unaligned-bc-st13"),
+       pytest.param("bfloat16", 2, 333, 8192, 16, 256,
+                    id="bf16-model-width-S333"),
+       pytest.param("float32", 2, 100, 256, 1, 256, id="f32-st1"),
+       pytest.param("float32", 1, 77, 301, 3, 7, id="f32-st3-di301"),
+       pytest.param("bfloat16", 2, 100, 999, 16, 7, id="bf16-di999")])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_selective_scan_kernel_matches_plain(dtype):
-    """K3 on the card against its plain version: ragged S, di and state
-    (S = 77, di = 1000, st = 5 and 16), B and C strided column slices of
-    one projection, f32 at tests/test_kernels.py's 1e-4, bf16 y at 2e-2;
-    h f32 at 1e-4 relative; a second launch gives the same bits."""
+@pytest.mark.parametrize("dtype,B,S,di,st,off", _K3_CASES)
+def test_selective_scan_kernel_matches_plain(dtype, B, S, di, st, off):
+    """K3 on the card against its plain version: ragged S, di and state,
+    K = 1 (st = 1) and one lane a channel (st <= 4), B and C strided
+    column slices of one projection (offset 7: not 16-byte aligned;
+    offset 256: the model path's), di off the 16-byte copies (999, 301);
+    f32 at tests/test_kernels.py's 1e-4, bf16 y at 2e-2; h f32 at 1e-4
+    relative; a second launch gives the same bits."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(3)
     dt_ = getattr(torch, dtype)
-    for B, S, di, st in ((3, 77, 1000, 5), (2, 130, 512, 16)):
-        x = (torch.randn(B, S, di, device="cuda", generator=g) * 0.5).to(dt_)
-        proj = torch.randn(B, S, 7 + 2 * st, device="cuda",
-                           generator=g).to(dt_)
-        Bc, Cc = proj[..., 7:7 + st], proj[..., 7 + st:]
-        dt = torch.nn.functional.softplus(
-            torch.randn(B, S, di, device="cuda", generator=g) * 0.2)
-        A = -torch.exp(torch.randn(di, st, device="cuda", generator=g) * 0.3)
-        D = 1.0 + 0.1 * torch.randn(di, device="cuda", generator=g)
-        before = k3.launches
-        y, h = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
-        y2, h2 = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
-        torch.cuda.synchronize()
-        assert k3.launches == before + 2
-        assert torch.equal(y, y2) and torch.equal(h, h2)
-        ry, rh = k3.selective_scan_plain(x, dt, A, Bc, Cc, D)
-        tol = 1e-4 if dtype == "float32" else 2e-2
-        torch.testing.assert_close(y.float(), ry.float(), atol=tol,
-                                   rtol=0 if dtype == "float32" else tol)
-        assert float((h - rh).abs().max()) <= 1e-4 * float(rh.abs().max())
+    x = (torch.randn(B, S, di, device="cuda", generator=g) * 0.5).to(dt_)
+    proj = torch.randn(B, S, off + 2 * st, device="cuda",
+                       generator=g).to(dt_)
+    Bc, Cc = proj[..., off:off + st], proj[..., off + st:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, di, device="cuda", generator=g) * 0.2)
+    A = -torch.exp(torch.randn(di, st, device="cuda", generator=g) * 0.3)
+    D = 1.0 + 0.1 * torch.randn(di, device="cuda", generator=g)
+    before = k3.launches
+    y, h = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
+    y2, h2 = k3.selective_scan_fwd(x, dt, A, Bc, Cc, D)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    ry, rh = k3.selective_scan_plain(x, dt, A, Bc, Cc, D)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y.float(), ry.float(), atol=tol,
+                               rtol=0 if dtype == "float32" else tol)
+    assert float((h - rh).abs().max()) <= 1e-4 * float(rh.abs().max())
 
 
 @pytest.mark.gpu

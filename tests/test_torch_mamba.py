@@ -136,6 +136,85 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
         k3.selective_scan_fwd(*(t.to("meta") for t in ins))
 
 
+# The edges of the Hopper kernel's tiling that chip_smoke.py's K3 rows and
+# tests/test_torch_gpu.py hold it at, against selective_scan_plain: (B, S,
+# di, st, column of B in the projection's rows, dtype). st and the slice
+# offsets are the card's (offset 7: B and C not 16-byte aligned; 256:
+# falcon-mamba-7b's dt_rank, the model path's aligned slices); S and di
+# are cut so that a case runs in seconds here, keeping di off the
+# kernel's 16-byte copies (37, 31) where the card's row does (301, 999)
+KERNEL_EDGES = [
+    pytest.param(1, 40, 64, 13, 7, "bfloat16", id="bf16-unaligned-st13"),
+    pytest.param(2, 33, 64, 16, 256, "bfloat16", id="bf16-model-slices"),
+    pytest.param(2, 24, 32, 1, 256, "float32", id="f32-st1"),
+    pytest.param(1, 24, 37, 3, 7, "float32", id="f32-st3-di37"),
+    pytest.param(2, 24, 31, 16, 7, "bfloat16", id="bf16-di31"),
+]
+
+
+def _edge_inputs(B, S, di, st, off, dtype):
+    """numpy inputs of both sides: x, dt, A, D as in ``_scan_inputs``, and
+    the projection whose column slices are B and C. bf16 rows take
+    falcon-mamba-7b's S4D-real A = -(s + 1), as chip_smoke.py's do."""
+    x, dt, A, _, _, D = _scan_inputs(B, S, di, st, seed=S + di + st + off)
+    if dtype == "bfloat16":
+        A = -np.tile(np.arange(1, st + 1, dtype=np.float32), (di, 1))
+    proj = np.random.default_rng(st).standard_normal(
+        (B, S, off + 2 * st)).astype(np.float32)
+    return x, dt, A, D, proj
+
+
+def _edge_torch(x, dt, A, D, proj, off, st, dtype):
+    td = getattr(torch, dtype)
+    tp = torch.from_numpy(proj).to(td)
+    return (torch.from_numpy(x).to(td), torch.from_numpy(dt),
+            torch.from_numpy(A), tp[..., off:off + st], tp[..., off + st:],
+            torch.from_numpy(D))
+
+
+def _edge_jax(x, dt, A, D, proj, off, st, dtype):
+    jd = getattr(jnp, dtype)
+    jp = jnp.asarray(proj).astype(jd)
+    return (jnp.asarray(x).astype(jd), jnp.asarray(dt), jnp.asarray(A),
+            jp[..., off:off + st], jp[..., off + st:], jnp.asarray(D))
+
+
+def _assert_scan_close(y, h, want_y, want_h, dtype):
+    """f32 y at the reference's 1e-4; bf16 y at 2e-2 absolute and relative
+    (both sides round the same f32 sums to bf16, which can land one ulp
+    apart); h f32 at 1e-4 either way."""
+    tol = dict(atol=ATOL) if dtype == "float32" else dict(atol=2e-2,
+                                                          rtol=2e-2)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(want_y, np.float32), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=ATOL)
+
+
+@pytest.mark.parametrize("B,S,di,st,off,dtype", KERNEL_EDGES)
+def test_plain_matches_ref_at_kernel_edges(B, S, di, st, off, dtype):
+    """K3's plain version, the card gates' yardstick, against the
+    reference's ``ref_selective_scan`` at the kernel's edge shapes, with
+    B and C strided column slices."""
+    arrs = _edge_inputs(B, S, di, st, off, dtype)
+    ins = _edge_torch(*arrs, off, st, dtype)
+    assert not ins[3].is_contiguous() and ins[3].stride(-1) == 1
+    y, h = k3.selective_scan_plain(*ins)
+    assert y.dtype == getattr(torch, dtype) and h.shape == (B, di, st)
+    _assert_scan_close(y, h, *jref.ref_selective_scan(
+        *_edge_jax(*arrs, off, st, dtype)), dtype)
+
+
+@pytest.mark.parametrize("B,S,di,st,off,dtype", KERNEL_EDGES)
+def test_plain_matches_pallas_kernel_at_kernel_edges(B, S, di, st, off,
+                                                     dtype):
+    """The same edges against the TPU kernel in interpret mode (its blocks
+    halved until they divide S and di, as it does itself)."""
+    arrs = _edge_inputs(B, S, di, st, off, dtype)
+    y, h = k3.selective_scan_plain(*_edge_torch(*arrs, off, st, dtype))
+    _assert_scan_close(y, h, *jscan_fwd(*_edge_jax(*arrs, off, st, dtype),
+                                        block_d=128, block_t=16), dtype)
+
+
 @pytest.mark.parametrize("bad", ["state", "dt_dtype", "b_dtype", "stride",
                                  "shape", "x_layout"])
 def test_kernel_input_checks(bad):
