@@ -10,11 +10,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes the serving and training paths give it, within the stated
    tolerance, and timed beside its bound, its plain version and one
    PyTorch library call: K1 forward, K1 backward (also run twice and
-   required bit-identical), K2 fused Adam (also the two-stage
-   ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one launch)
+   required bit-identical; hd 32, 64 and 128), K2 fused Adam (also the
+   two-stage ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one
+   launch)
    and K3 selective scan (falcon-mamba-7b's prefill shapes, the f32
    sweep and the edges of the kernel's tiling: B/C slices not 16-byte
-   aligned, states 1, 3 and 13, d_inner off the 16-byte copies; run
+   aligned, states 1, 3 and 13, d_inner off the 16-byte copies, S = 32
+   and 64 at full width where the copy ring has the least lead; run
    twice, bit-identical; the headline row also timed from a
    ``torch.profiler`` trace; no library call computes it).
 4. serve — ``ServeEngine`` at GPT-65B full width (depth cut to
@@ -34,8 +36,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K1 backward == L M steps, K2 == 3 steps; (d) gpt-tiny in f32 with
    deterministic algorithms: alpha = 0 and alpha = 0.25 losses bitwise
    equal; (e) gpt-tiny f32 on the card against the same engine on the
-   CPU. Also measures the card's busy time in the training steps (CUDA
-   events around each layer, embedding and head call).
+   CPU. Then (f) the same GPT-65B-width run under
+   ``activation_policy="spill"`` (the act stream half host / half SSD)
+   from the same params and tokens: bytes == plan x steps (``act``
+   included) and the closed forms, losses against the same oracle, K1
+   forward launches == L M steps (no forward recomputed), K1 backward ==
+   L M steps, K2 == 3 steps, no act fallback, and
+   ``memory_allocated`` after the last FWD no more than the recompute
+   run's plus one payload (after that FWD's SPILL_ACT, no more than the
+   recompute run's); (g) gpt-tiny f32 spill == recompute bitwise
+   (losses and final parameters) on the card, and qwen3-4b-smoke (hd 32)
+   f32 under spill on the card within 1e-5 of the CPU; (h) what
+   ``"auto"`` resolves to at GPT-65B width (reported, no gate); (i)
+   gpt-tiny f32 saved after step 1 and restored into a fresh engine on
+   the card: step 2 bitwise the uninterrupted run's. Also measures the
+   card's busy time in the training steps (CUDA events around each
+   layer, embedding and head call).
 6. mamba — falcon-mamba-7b at full width and depth (64 layers), bf16,
    random weights: ``prefill`` of 2 x 2048 tokens (K3 in every layer),
    32 greedy ``decode_step``s, then a fresh prefill over prompt + generated
@@ -111,6 +127,17 @@ K1_SHAPES = [
      48, 16),
     ("bf16 ragged S=1000 causal", 1, 16, 16, 1000, 128, "bfloat16", True,
      None, 0),
+    # hd 32 (every SMOKE config's head dim, ArchConfig.reduced): the
+    # 64-byte swizzle of the bf16 kernel and the f32 kernel's 32 columns.
+    # qwen3-4b-smoke's attention as train gate (g) runs it (micro-batch 2
+    # x 64 tokens, 4 heads, f32); bf16 GQA 4:1 with ragged S, a window and
+    # q0; f32 at the same edges; one full-length causal row for its time
+    ("qwen3-4b-smoke f32 S=64", 2, 4, 4, 64, 32, "float32", True, None, 0),
+    ("bf16 gqa hd32 ragged window q0", 1, 8, 2, 200, 32, "bfloat16", True,
+     48, 16),
+    ("f32 gqa hd32 ragged window q0", 1, 8, 2, 200, 32, "float32", True, 48,
+     16),
+    ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
 ]
 HEADLINE = "gpt-65b prefill S=2048"
 
@@ -123,6 +150,11 @@ K1B_SHAPES = [
     ("bf16 gqa hd64 ragged window", 1, 8, 2, 200, 64, "bfloat16", True, 48),
     ("bf16 ragged S=1000 causal", 1, 16, 16, 1000, 128, "bfloat16", True,
      None),
+    # hd 32, as in K1_SHAPES
+    ("qwen3-4b-smoke f32 S=64", 2, 4, 4, 64, 32, "float32", True, None),
+    ("bf16 gqa hd32 ragged window", 1, 8, 2, 200, 32, "bfloat16", True, 48),
+    ("f32 gqa hd32 ragged window", 1, 8, 2, 200, 32, "float32", True, 48),
+    ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None),
 ]
 K1B_HEADLINE = "gpt-65b train S=2048"
 
@@ -166,6 +198,17 @@ K3_SHAPES = [
     ("f32 st=1 (2,100,256,1)", 2, 100, 256, 1, "float32", K3_DT_RANK),
     ("f32 st=3 di=301 (1,77,301,3)", 1, 77, 301, 3, "float32", 7),
     ("bf16 di=999 (2,100,999,16)", 2, 100, 999, 16, "bfloat16", 7),
+    # the least lead for the cp.async ring: S inside the first one or two
+    # 32-step chunks, at full width (the copies of chunk 0 and 1 are issued
+    # just before their first use)
+    ("falcon-mamba-7b width B=1 S=32", 1, 32, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("falcon-mamba-7b width B=2 S=32", 2, 32, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("falcon-mamba-7b width B=1 S=64", 1, 64, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("falcon-mamba-7b width B=2 S=64", 2, 64, 8192, 16, "bfloat16",
+     K3_DT_RANK),
 ]
 K3_HEADLINE = "falcon-mamba-7b prefill B=1 S=2048"
 K3_ATOL_F32 = 1e-4               # tests/test_kernels.py's selective-scan atol
@@ -615,13 +658,16 @@ def meminfo() -> dict:
 
 
 def check_train_bytes(eng, cfg, ocfg, steps):
-    """Gate (a): measured meters == plan_traffic x steps per (category,
-    route), exactly; and == the closed forms of core/traffic.py where
-    they cover a route (vertical, recompute: params fetched twice and
-    grads offloaded once per step, §3.4; checkpoints read twice minus
-    the on-device boundary micro-batch, §4.2)."""
+    """Gate (a), and (f)'s bytes: measured meters == plan_traffic x steps
+    per (category, route), exactly; and == the closed forms of
+    core/traffic.py where they cover a route (vertical: params fetched
+    twice and grads offloaded once per step, §3.4; checkpoints read twice
+    minus the on-device boundary micro-batch, §4.2, or once under spill,
+    whose backward reads the activation stream: L M payloads out and
+    back, the tail beyond round(x_act A) through the SSD)."""
     from repro_torch.core.plan import PlanCosts, plan_traffic
-    from repro_torch.core.traffic import vertical_ckpt_traffic
+    from repro_torch.core.traffic import (act_spill_traffic,
+                                          vertical_ckpt_traffic)
     measured = {k: int(v) for k, v in eng.meter.bytes.items()}
     pred = {k: steps * int(v) for k, v in
             plan_traffic(eng.plan, PlanCosts.from_engine(eng)).items()}
@@ -630,13 +676,20 @@ def check_train_bytes(eng, cfg, ocfg, steps):
             if measured.get((c, r), 0) != pred.get((c, r), 0)]
     item = eng.dtype.itemsize
     L, P, M = eng.L, eng.P, ocfg.num_microbatches
+    spill = eng.plan.spec.act_spill
     u = ocfg.micro_batch * ocfg.seq_len * cfg.d_model * item
-    ct = vertical_ckpt_traffic(L * u, M, L)
+    ct = vertical_ckpt_traffic(L * u, M, L, act_spill=spill)
     closed = {("param", "cpu->gpu"): 2 * L * P * item,
               ("grad", "gpu->cpu"): L * P * 4,
               ("grad", "cpu->gpu"): 0,
               ("ckpt", "gpu->cpu"): ct.write,
               ("ckpt", "cpu->gpu"): ct.read}
+    if spill:
+        at = act_spill_traffic(eng.act_nbytes, M, L, ocfg.ratios.act)
+        closed.update({("act", "gpu->cpu"): at.spill,
+                       ("act", "cpu->gpu"): at.fetch,
+                       ("act", "cpu->ssd"): at.ssd_spill,
+                       ("act", "ssd->cpu"): at.ssd_reread})
     for key, want in closed.items():
         if measured.get(key, 0) != steps * want:
             errs.append(f"{key[0]}:{key[1]}: measured "
@@ -650,21 +703,19 @@ def check_train_bytes(eng, cfg, ocfg, steps):
     return errs, measured
 
 
-def phase_train(torch, fa, fad, report, cfg, workroot):
-    """GPT-65B-width training through ``OffloadEngine`` on the card;
-    returns (failures, stats). Gates (a) bytes, (b) losses against the
-    in-memory oracle, (c) launches."""
+def train_engine_run(torch, fa, fad, report, cfg, params, batches,
+                     workroot, policy):
+    """One GPT-65B-width ``OffloadEngine`` run on the card under
+    ``activation_policy=policy``: TRAIN_STEPS steps then ``finish()``.
+    Returns (byte-gate failures, the run's numbers). The launch counts
+    are set to 0 after the engine is built (its construction sizes the
+    residual payload with one forward) and read after ``finish()``."""
     import gc
     import threading
 
-    from repro_torch.core import (ScheduleConfig, init_train_state,
-                                  make_train_step)
     from repro_torch.core.perfmodel import StorageRatios
-    from repro_torch.data import SyntheticLM
     from repro_torch.io import IOConfig
-    from repro_torch.models import model as mdl
     from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
-    from repro_torch.optim import AdamConfig
 
     # the layer / embedding / head work the executor runs on the card.
     # Each call is bracketed by CUDA events; the summed card time between
@@ -672,33 +723,31 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
     # in which the card waits for the host inside a call)
     device_fns = ("j_layer_fwd", "j_layer_fwd_res", "j_layer_bwd_res",
                   "j_embed", "j_head_bwd", "j_embed_bwd", "j_adam_dev")
-    mem = meminfo()
-    disk = shutil.disk_usage(workroot)
-    report(f"host RAM {mem.get('MemTotal', 0) / 2**30:.1f} GiB (available "
-           f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB), disk free "
-           f"{disk.free / 2**30:.1f} GiB at {workroot}")
+    # the function each plan FWD calls: the plain forward under recompute,
+    # the residual-keeping one under spill
+    fwd_fn = "j_layer_fwd" if policy == "recompute" else "j_layer_fwd_res"
     M, MB, S, steps = TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS
-    data = SyntheticLM(cfg.vocab_size, seed=0)
-    batches = [data.batch(M * MB, S) for _ in range(steps)]
     t0 = time.perf_counter()
-    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
-    state = offload_state(cfg, params)
-    workdir = tempfile.mkdtemp(prefix="train-", dir=workroot)
+    workdir = tempfile.mkdtemp(prefix=f"train-{policy}-", dir=workroot)
     ocfg = OffloadConfig(schedule="vertical", num_microbatches=M,
                          micro_batch=MB, seq_len=S, alpha=0.25,
-                         ratios=StorageRatios(0.5, 0.5, 0.5),
+                         ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5),
                          param_dtype="bfloat16", prefetch_depth=1,
+                         activation_policy=policy,
                          io=IOConfig(paths=[workdir], chunk_bytes=8 << 20))
     eng = None
     adam_s = [0.0]
     lock = threading.Lock()
     try:
-        eng = OffloadEngine(cfg, ocfg, 0, workdir, params=state)
-        del state
+        eng = OffloadEngine(cfg, ocfg, 0, workdir,
+                            params=offload_state(cfg, params))
+        gc.collect()
+        torch.cuda.empty_cache()
         build_s = time.perf_counter() - t0
-        report(f"train engine built in {build_s:.2f} s: {eng.L} layers x "
-               f"{eng.P} params, host {eng.host.nbytes() / 2**30:.2f} GiB, "
-               f"SSD {eng.ssd.nbytes() / 2**30:.2f} GiB")
+        report(f"train engine ({policy}) built in {build_s:.2f} s: {eng.L} "
+               f"layers x {eng.P} params, residual payload A = "
+               f"{eng.act_nbytes} B, host {eng.host.nbytes() / 2**30:.2f} "
+               f"GiB, SSD {eng.ssd.nbytes() / 2**30:.2f} GiB")
         adam = eng.opt_c.adam
         update = adam.update
 
@@ -709,6 +758,7 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
                 adam_s[0] += time.perf_counter() - ts
         adam.update = timed_update
         spans = []                           # (call, start, end)
+        mem_fwd, mem_put = [], []            # memory_allocated readings
 
         def on_device(name, fn):
             def timed(*a, **kw):
@@ -718,10 +768,18 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
                 out = fn(*a, **kw)
                 ev[1].record()
                 spans.append((name, *ev))
+                if name == fwd_fn:
+                    mem_fwd.append(torch.cuda.memory_allocated())
                 return out
             return timed
         for name in device_fns:
             setattr(eng, name, on_device(name, getattr(eng, name)))
+        put = eng.act_c.put
+
+        def measured_put(*a, **kw):
+            put(*a, **kw)
+            mem_put.append(torch.cuda.memory_allocated())
+        eng.act_c.put = measured_put
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.fwd_launches = fa.bwd_launches = fad.launches = 0  # path starts
@@ -745,8 +803,36 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
         peak = torch.cuda.max_memory_allocated()
         snap = eng.metrics_snapshot()
         byte_errs, measured = check_train_bytes(eng, cfg, ocfg, steps)
-        host_peak = eng.host.peak_nbytes
-        P = eng.P
+        run = {
+            "policy": policy, "act_policy": eng.act_policy,
+            "act_nbytes": eng.act_nbytes, "P": eng.P,
+            "act_fallbacks": eng.act_fallbacks, "act_skips": eng.act_skips,
+            "losses": losses, "build_s": build_s, "step_s": step_s,
+            "s_per_step": sum(step_s) / len(step_s), "finish_s": finish_s,
+            "run_s": run_s, "tokens_per_s": M * MB * S * len(step_s)
+            / sum(step_s),
+            "op_seconds": snap["op_seconds"], "stall_s": snap["stall_s"],
+            "phase_time": snap["phase_time"],
+            "lookahead_hit_rate": snap["lookahead"]["hit_rate"],
+            "hint_skips": snap["hint_skips"],
+            "cpu_adam_busy_s": adam_s[0],
+            "cpu_adam_share_of_run": adam_s[0] / run_s,
+            "device_busy_s": device_s,
+            "device_busy_share_of_steps": device_s / sum(step_s),
+            "device_busy_s_by_call": device_by_call,
+            "host_peak_nbytes": eng.host.peak_nbytes,
+            "max_memory_allocated": peak,
+            "memory_allocated_after_last_fwd": mem_fwd[-1],
+            "memory_allocated_after_last_spill":
+                mem_put[-1] if mem_put else None,
+            "act_bytes_per_step": sum(v for (c, _), v in measured.items()
+                                      if c == "act") // steps,
+            "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
+                         "k2": launches[2]},
+            "traffic": {f"{c}:{r}": v
+                        for (c, r), v in sorted(measured.items())},
+            "ocfg": ocfg,
+        }
     finally:
         if eng is not None:
             eng.close()
@@ -754,21 +840,83 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    report(f"train losses {losses} in {step_s} s/step (finish "
+    report(f"train ({policy}) losses {losses} in {step_s} s/step (finish "
            f"{finish_s:.2f} s)")
+    return byte_errs, run
 
-    failures = list(byte_errs)
+
+def phase_train(torch, fa, fad, report, cfg, workroot):
+    """GPT-65B-width training through ``OffloadEngine`` on the card, under
+    ``activation_policy="recompute"`` and then ``"spill"`` from the same
+    params and tokens; returns (failures, stats). Gates (a) bytes, (b)
+    losses against the in-memory oracle, (c) launches, (f) the spill
+    run's bytes, losses, launches, fallbacks and device memory; (h)
+    reports what ``"auto"`` resolves to."""
+    import gc
+
+    from repro_torch.core import (ScheduleConfig, init_train_state,
+                                  make_train_step)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+    from repro_torch.offload.engine import resolve_activation_policy
+    from repro_torch.optim import AdamConfig
+
+    mem = meminfo()
+    disk = shutil.disk_usage(workroot)
+    report(f"host RAM {mem.get('MemTotal', 0) / 2**30:.1f} GiB (available "
+           f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB), disk free "
+           f"{disk.free / 2**30:.1f} GiB at {workroot}")
+    M, MB, S, steps = TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS
     L = cfg.num_layers
-    want = (2 * L * M * steps, L * M * steps, 3 * steps)
-    if launches != want:
-        failures.append(f"launches (K1 fwd, K1 bwd, K2) {launches} != "
-                        f"{want}")
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(M * MB, S) for _ in range(steps)]
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    failures = []
+    runs = {}
+    for policy, fwd_per_mb in (("recompute", 2), ("spill", 1)):
+        errs, runs[policy] = train_engine_run(
+            torch, fa, fad, report, cfg, params, batches, workroot, policy)
+        failures += [f"{policy}: {e}" for e in errs]
+        got = tuple(runs[policy]["launches"].values())
+        # (c) / (f): a forward a micro-batch and layer under spill (none
+        # recomputed), two under recompute
+        want = (fwd_per_mb * L * M * steps, L * M * steps, 3 * steps)
+        if got != want:
+            failures.append(f"{policy}: launches (K1 fwd, K1 bwd, K2) {got} "
+                            f"!= {want}")
+        report(f"bytes ({policy}; plan x steps, closed forms): "
+               f"{'OK' if not errs else errs}; launches (K1 fwd, K1 bwd, "
+               f"K2) {got}, want {want}")
+    rc, sp = runs["recompute"], runs["spill"]
+    if sp["act_policy"] != "spill" or sp["act_fallbacks"] != 0:
+        failures.append(f"spill run: policy {sp['act_policy']}, "
+                        f"{sp['act_fallbacks']} act fallbacks (want 0)")
+    # (f) the forward's graph holds no device storage once SPILL_ACT has
+    # run: after the last FWD the card holds at most recompute's tensors
+    # plus that FWD's payload, and once its SPILL_ACT has run, no more
+    # than recompute's
+    rc_mem = rc["memory_allocated_after_last_fwd"]
+    mem_limit = rc_mem + sp["act_nbytes"]
+    mem_ok = (sp["memory_allocated_after_last_fwd"] <= mem_limit
+              and sp["memory_allocated_after_last_spill"] <= rc_mem)
+    if not mem_ok:
+        failures.append(f"spill: memory_allocated after the last FWD "
+                        f"{sp['memory_allocated_after_last_fwd']} (limit "
+                        f"recompute's {rc_mem} + one payload "
+                        f"{sp['act_nbytes']}), after its SPILL_ACT "
+                        f"{sp['memory_allocated_after_last_spill']} (limit "
+                        f"{rc_mem})")
+    report(f"memory_allocated after the last FWD: recompute "
+           f"{rc_mem} B, spill {sp['memory_allocated_after_last_fwd']} B "
+           f"(limit {mem_limit}: + one payload), spill after its SPILL_ACT "
+           f"{sp['memory_allocated_after_last_spill']} B (limit {rc_mem}) "
+           f"-> {'OK' if mem_ok else 'FAIL'}")
 
-    # (b) the in-memory oracle from the same initial params
+    # (b) the in-memory oracle from the same initial params, for both runs
     t_o = time.perf_counter()
     step = make_train_step(cfg, ScheduleConfig(schedule="vertical",
                                                num_microbatches=M),
-                           AdamConfig(lr=ocfg.lr))
+                           AdamConfig(lr=rc["ocfg"].lr))
     _, opt = init_train_state(cfg, params=params)
     p, oracle = params, []
     for b in batches:
@@ -778,82 +926,125 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
     gc.collect()
     torch.cuda.empty_cache()
     oracle_s = time.perf_counter() - t_o
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, oracle)]
-    loss_fail = [f"step {i + 1} loss {losses[i]} vs in-memory oracle "
-                 f"{oracle[i]}: rel {r} > {LOSS_RTOL}"
-                 for i, r in enumerate(rel)
-                 if not (r <= LOSS_RTOL and math.isfinite(losses[i]))]
-    failures += loss_fail
-    report(f"in-memory oracle losses {oracle} ({oracle_s:.1f} s): rel diff "
-           f"{rel} (tol {LOSS_RTOL}) -> "
-           f"{'OK' if not loss_fail else 'FAIL'}")
-    report(f"bytes (plan x steps, closed forms): "
-           f"{'OK' if not byte_errs else byte_errs}; launches (K1 fwd, "
-           f"K1 bwd, K2) {launches}, want {want}")
-    s_step = sum(step_s) / len(step_s)
-    stats = {
-        "model": cfg.name, "layers": L, "params_per_layer": P,
+    rel = {}
+    for policy, run in runs.items():
+        losses = run["losses"]
+        rel[policy] = [abs(a - b) / abs(b) for a, b in zip(losses, oracle)]
+        loss_fail = [f"{policy} step {i + 1} loss {losses[i]} vs in-memory "
+                     f"oracle {oracle[i]}: rel {r} > {LOSS_RTOL}"
+                     for i, r in enumerate(rel[policy])
+                     if not (r <= LOSS_RTOL and math.isfinite(losses[i]))]
+        failures += loss_fail
+        report(f"in-memory oracle losses {oracle} ({oracle_s:.1f} s) vs "
+               f"{policy}: rel diff {rel[policy]} (tol {LOSS_RTOL}) -> "
+               f"{'OK' if not loss_fail else 'FAIL'}")
+
+    # (h) what "auto" resolves to at this width on the default machine
+    auto_ocfg = dataclasses.replace(rc["ocfg"], activation_policy="auto")
+    auto = resolve_activation_policy(auto_ocfg, cfg, sp["P"], 2,
+                                     sp["act_nbytes"])
+    report(f"activation_policy='auto' at {cfg.name} width (default "
+           f"MachineParams, A = {sp['act_nbytes']} B) resolves to {auto!r}")
+    for policy, run in runs.items():
+        run.pop("ocfg")
+        run["loss_rel_diff"] = rel[policy]
+    stats = dict(rc)
+    stats.update({
+        "model": cfg.name, "layers": L, "params_per_layer": rc["P"],
         "micro_batches": M, "micro_batch": MB, "seq_len": S,
-        "alpha": ocfg.alpha, "ratios": [0.5, 0.5, 0.5], "steps": steps,
-        "losses": losses, "oracle_losses": oracle, "loss_rel_diff": rel,
-        "build_s": build_s, "step_s": step_s, "s_per_step": s_step,
-        "finish_s": finish_s, "run_s": run_s,
-        "tokens_per_s": M * MB * S / s_step,
-        "op_seconds": snap["op_seconds"], "stall_s": snap["stall_s"],
-        "phase_time": snap["phase_time"],
-        "lookahead_hit_rate": snap["lookahead"]["hit_rate"],
-        "hint_skips": snap["hint_skips"],
-        "cpu_adam_busy_s": adam_s[0],
-        "cpu_adam_share_of_run": adam_s[0] / run_s,
-        "device_busy_s": device_s,
-        "device_busy_share_of_steps": device_s / sum(step_s),
-        "device_busy_s_by_call": device_by_call,
-        "host_peak_nbytes": host_peak,
-        "max_memory_allocated": peak,
-        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
-                     "k2": launches[2]},
-        "traffic": {f"{c}:{r}": v for (c, r), v in sorted(measured.items())},
-        "host_mem": mem, "disk_free": disk.free,
-    }
+        "alpha": 0.25, "ratios": [0.5, 0.5, 0.5, 0.5], "steps": steps,
+        "oracle_losses": oracle, "host_mem": mem, "disk_free": disk.free,
+        "spill": sp, "auto_resolves_to": auto,
+    })
     return failures, stats
 
 
 def phase_train_tiny(torch, report, workroot):
-    """Gates (d) and (e) on gpt-tiny in f32: alpha = 0 and 0.25 bitwise on
-    the card under deterministic algorithms, and the card against the
-    same engine on the CPU within 1e-5 relative."""
-    from repro_torch.configs import get_config
+    """Gates on small models in f32, under deterministic algorithms on the
+    card: (d) gpt-tiny alpha = 0 and 0.25 bitwise; (e) gpt-tiny card vs
+    the same engine on the CPU within 1e-5 relative; (g) gpt-tiny spill
+    and recompute bitwise (losses and final parameters), qwen3-4b-smoke
+    (hd 32) under spill card vs CPU within 1e-5; (i) a checkpoint saved
+    after step 1 and restored into a fresh engine on the card gives step
+    2's loss and parameters of the uninterrupted run bitwise."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke
     from repro_torch.core.perfmodel import StorageRatios
     from repro_torch.data import SyntheticLM
     from repro_torch.models import model as mdl
     from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
 
+    def engine(cfg, params, device, seed=0, **kw):
+        d = tempfile.mkdtemp(prefix="tiny-", dir=workroot)
+        eng = OffloadEngine(cfg, OffloadConfig(
+            num_microbatches=4, micro_batch=2, seq_len=64,
+            ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5), **kw), seed, d,
+            params=None if params is None else offload_state(cfg, params),
+            device=device)
+        return eng, d
+
+    def masters(eng):
+        return np.concatenate([v.read() for v in eng.m_master])
+
+    def run(cfg, params, batches, device, **kw):
+        eng, d = engine(cfg, params, device, **kw)
+        try:
+            losses = [eng.train_step(b) for b in batches]
+            eng.finish()
+            fallbacks = eng.act_fallbacks
+            out = (losses, masters(eng), fallbacks)
+            eng.close()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return out
+
     cfg = get_config("gpt-tiny")
     params = mdl.init_params(cfg, 1, dtype=torch.float32, device="cpu")
     data = SyntheticLM(cfg.vocab_size, seed=1)
     batches = [data.batch(8, 64) for _ in range(3)]
-
-    def run(alpha, device):
-        d = tempfile.mkdtemp(prefix="tiny-", dir=workroot)
-        try:
-            eng = OffloadEngine(cfg, OffloadConfig(
-                num_microbatches=4, micro_batch=2, seq_len=64, alpha=alpha,
-                ratios=StorageRatios(0.5, 0.5, 0.5)), 0, d,
-                params=offload_state(cfg, params), device=device)
-            losses = [eng.train_step(b) for b in batches]
-            eng.finish()
-            eng.close()
-        finally:
-            shutil.rmtree(d, ignore_errors=True)
-        return losses
-
+    qcfg = get_smoke("qwen3-4b")
+    qparams = mdl.init_params(qcfg, 2, dtype=torch.float32, device="cpu")
+    qdata = SyntheticLM(qcfg.vocab_size, seed=2)
+    qbatches = [qdata.batch(8, 64) for _ in range(2)]
+    failures = []
     torch.use_deterministic_algorithms(True)
     try:
-        l0, la = run(0.0, "cuda"), run(0.25, "cuda")
+        l0, m0, _ = run(cfg, params, batches, "cuda")
+        la, _, _ = run(cfg, params, batches, "cuda", alpha=0.25)
+        ls, ms_, fb = run(cfg, params, batches, "cuda",
+                          activation_policy="spill")
+        lq, _, fq = run(qcfg, qparams, qbatches, "cuda",
+                        activation_policy="spill")
+        # (i) save after step 1, restore into a fresh engine (another
+        # seed), run step 2; against the uninterrupted spill run above
+        a, da = engine(cfg, params, "cuda", activation_policy="spill")
+        ck = tempfile.mkdtemp(prefix="ckpt-", dir=workroot)
+        db = None
+        try:
+            a.train_step(batches[0])
+            t_s = time.perf_counter()
+            a.save_checkpoint(ck)
+            save_s = time.perf_counter() - t_s
+            a.close()
+            b, db = engine(cfg, None, "cuda", seed=99,
+                           activation_policy="spill")
+            t_r = time.perf_counter()
+            restored = b.restore_checkpoint(ck)
+            restore_s = time.perf_counter() - t_r
+            resumed = [b.train_step(x) for x in batches[1:]]
+            b.finish()
+            mr = masters(b)
+            b.close()
+        finally:
+            for p in (da, ck, db):
+                if p:
+                    shutil.rmtree(p, ignore_errors=True)
     finally:
         torch.use_deterministic_algorithms(False)
-    lc = run(0.0, "cpu")
-    failures = []
+    lc, _, _ = run(cfg, params, batches, "cpu")
+    lqc, _, _ = run(qcfg, qparams, qbatches, "cpu",
+                    activation_policy="spill")
     if l0 != la:
         failures.append(f"gpt-tiny alpha 0 {l0} != alpha 0.25 {la} on the "
                         f"card")
@@ -864,6 +1055,29 @@ def phase_train_tiny(torch, report, workroot):
            f"{l0 == la}; card vs CPU {lc}: max rel {worst:.3e} (tol 1e-5: "
            f"f32 sums in another order on each device) -> "
            f"{'OK' if not failures else 'FAIL'}")
+    g_ok = ls == l0 and bool((ms_ == m0).all()) and fb == 0
+    if not g_ok:
+        failures.append(f"gpt-tiny spill {ls} (fallbacks {fb}) != recompute "
+                        f"{l0} or final masters differ")
+    qworst = max(abs(a - b) / abs(b) for a, b in zip(lq, lqc))
+    q_ok = qworst <= 1e-5 and fq == 0 and all(map(math.isfinite, lq))
+    if not q_ok:
+        failures.append(f"qwen3-4b-smoke spill card {lq} vs CPU {lqc}: rel "
+                        f"{qworst}, fallbacks {fq}")
+    report(f"(g) gpt-tiny f32 spill == recompute on the card (losses and "
+           f"final masters bitwise): {g_ok}; qwen3-4b-smoke (hd "
+           f"{qcfg.head_dim}) f32 spill card {lq} vs CPU {lqc}: max rel "
+           f"{qworst:.3e} (tol 1e-5) -> {'OK' if q_ok else 'FAIL'}")
+    i_ok = (restored == 1 and resumed == ls[1:]
+            and bool((mr == ms_).all()))
+    if not i_ok:
+        failures.append(f"checkpoint resume: restored step {restored}, "
+                        f"losses {resumed} vs uninterrupted {ls[1:]}, "
+                        f"masters equal {bool((mr == ms_).all())}")
+    report(f"(i) gpt-tiny f32 checkpoint after step 1 (save {save_s:.2f} s, "
+           f"restore {restore_s:.2f} s) resumed {resumed} == uninterrupted "
+           f"{ls[1:]} and final masters bitwise: {i_ok} -> "
+           f"{'OK' if i_ok else 'FAIL'}")
     return failures
 
 
@@ -1343,24 +1557,30 @@ def main() -> int:
                f"{cfg.d_ff}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
                f"depth cut {full.num_layers} -> {cfg.num_layers} layers, "
                f"bf16, vertical, M {TRAIN_M} x {TRAIN_MB} x {TRAIN_S} tokens, "
-               f"alpha 0.25, ratios 0.5/0.5/0.5, {TRAIN_STEPS} steps")
+               f"alpha 0.25, ratios 0.5/0.5/0.5 (act 0.5), {TRAIN_STEPS} "
+               f"steps, activation_policy recompute then spill")
         f, tstats = phase_train(torch, fa, fad, report, cfg, workroot)
         failures += f
         failures += phase_train_tiny(torch, report, workroot)
-        report(f"train ({smi}): {tstats['s_per_step']:.2f} s/step, "
-               f"{tstats['tokens_per_s']:.1f} tokens/s, stall "
-               f"{tstats['stall_s']:.2f} s, phase time "
-               f"{json.dumps(tstats['phase_time'])}, lookahead hit rate "
-               f"{tstats['lookahead_hit_rate']:.3f}, CPU Adam busy "
-               f"{tstats['cpu_adam_busy_s']:.2f} s "
-               f"({100 * tstats['cpu_adam_share_of_run']:.1f} % of the run), "
-               f"device busy {tstats['device_busy_s']:.3f} s "
-               f"({100 * tstats['device_busy_share_of_steps']:.2f} % of the "
-               f"steps), "
-               f"host peak {tstats['host_peak_nbytes'] / 2**30:.2f} GiB, "
-               f"max_memory_allocated "
-               f"{tstats['max_memory_allocated'] / 2**30:.2f} GiB")
-        report("train op seconds: " + json.dumps(tstats["op_seconds"]))
+        for run in (tstats, tstats["spill"]):
+            report(f"train {run['policy']} ({smi}): "
+                   f"{run['s_per_step']:.2f} s/step, "
+                   f"{run['tokens_per_s']:.1f} tokens/s, A "
+                   f"{run['act_nbytes']} B, act bytes/step "
+                   f"{run['act_bytes_per_step']}, stall "
+                   f"{run['stall_s']:.2f} s, phase time "
+                   f"{json.dumps(run['phase_time'])}, lookahead hit rate "
+                   f"{run['lookahead_hit_rate']:.3f}, CPU Adam busy "
+                   f"{run['cpu_adam_busy_s']:.2f} s "
+                   f"({100 * run['cpu_adam_share_of_run']:.1f} % of the "
+                   f"run), device busy {run['device_busy_s']:.3f} s "
+                   f"({100 * run['device_busy_share_of_steps']:.2f} % of the "
+                   f"steps), host peak "
+                   f"{run['host_peak_nbytes'] / 2**30:.2f} GiB, "
+                   f"max_memory_allocated "
+                   f"{run['max_memory_allocated'] / 2**30:.2f} GiB")
+            report(f"train {run['policy']} op seconds: "
+                   + json.dumps(run["op_seconds"]))
         report("train stats: " + json.dumps(tstats))
         wall["train"] = time.perf_counter() - t0
     # 6. mamba
@@ -1397,22 +1617,27 @@ def main() -> int:
             print(f"FAIL: {msg}", file=sys.stderr)
         return 1
 
-    tl = tstats.get("launches", {})
+    # the train phase's two runs (recompute, then spill) are its main path
+    tr = tstats.get("launches", {})
+    ts = tstats.get("spill", {}).get("launches", {})
+    tl = {k: tr.get(k, 0) + ts.get(k, 0) for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
     kernels = [
         _kernel_entry("K1 flash_attention_fwd",
                       "src/repro_torch/csrc/flash_attention_fwd.cu",
                       "src/repro/kernels/flash_attention.py:27",
-                      serve_k1 + tl.get("k1_fwd", 0), rows, HEADLINE, smi,
-                      launches_by_path={"serve": serve_k1,
-                                        "train": tl.get("k1_fwd", 0)}),
+                      serve_k1 + tl["k1_fwd"], rows, HEADLINE, smi,
+                      launches_by_path={
+                          "serve": serve_k1,
+                          "train_recompute": tr.get("k1_fwd", 0),
+                          "train_spill": ts.get("k1_fwd", 0)}),
         _kernel_entry("K1 flash_attention_bwd",
                       "src/repro_torch/csrc/flash_attention_bwd.cu",
                       "src/repro/models/attention.py:105",
-                      tl.get("k1_bwd", 0), brows, K1B_HEADLINE, smi),
+                      tl["k1_bwd"], brows, K1B_HEADLINE, smi),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
-                      tl.get("k2", 0), arows, K2_HEADLINE, smi),
+                      tl["k2"], arows, K2_HEADLINE, smi),
         _kernel_entry("K3 selective_scan_fwd",
                       "src/repro_torch/csrc/selective_scan.cu",
                       "src/repro/kernels/selective_scan.py:27",

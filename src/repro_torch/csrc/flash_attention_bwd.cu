@@ -63,6 +63,9 @@
 //           171 registers, 104,448 B, 2 blocks per SM.
 //   hd 64:  dK/dV 64 rows a step, 188 registers, 56,320 B, 2 blocks;
 //           dQ 168 registers, 55,296 B, 3 blocks per SM.
+//   hd 32:  the hd 64 tiling with two k16 steps along hd and rows of 40
+//           bf16 (80 bytes: the 8 rows of an `ldmatrix` still fall in 8
+//           distinct 16-byte bank groups), 4 16-byte copies a row.
 // Per step a dK/dV warp at hd 128 keeps 128 f32 accumulators (dK and dV
 // for 16 keys) and 32 for S^T and dP^T; the 32-row step is what keeps
 // that without a spill.
@@ -864,11 +867,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 32)
+    return launch_f32<32>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
+                          Sq, Skv, causal, window, scale, st);
   if (dtype == 0 && hd == 64)
     return launch_f32<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
                           Sq, Skv, causal, window, scale, st);
   if (dtype == 0 && hd == 128)
     return launch_f32<128>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
+                           Sq, Skv, causal, window, scale, st);
+  if (dtype == 1 && hd == 32)
+    return launch_bf16<32>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
                            Sq, Skv, causal, window, scale, st);
   if (dtype == 1 && hd == 64)
     return launch_bf16<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,

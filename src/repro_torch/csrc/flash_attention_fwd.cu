@@ -55,6 +55,9 @@
 //   alignment slack), 168 registers a thread (`-Xptxas -v`, CUDA 12.8,
 //   no spills): one block, 9 warps, per SM. hd 64: 82,984 B, 154
 //   registers: one block per SM (the registers of 288 threads).
+//   hd 32: a row is 64 bytes, so its box is the whole row under the
+//   64-byte swizzle (TMA map and descriptors alike, 8-row groups 512 B
+//   apart); Q K^T takes two k16 steps, P V is `wgmma.m64n32k16`.
 // Later work: `setmaxnreg` to move registers from the producer to the
 // consumers, ping-pong scheduling of the two consumer warpgroups (one's
 // softmax under the other's products), overlap of the next S product with
@@ -103,13 +106,17 @@ constexpr int WQ = 128;                  // query rows per block
 constexpr int WK = 128;                  // keys per tile
 constexpr int STAGES = 2;                // K/V ring depth
 constexpr int W_THREADS = 2 * 128 + 32;  // two consumer warpgroups + producer
-constexpr int SW = 128;                  // bytes of a swizzled row (64 bf16)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// A box is BOX bf16 columns of SW bytes, the span of its swizzle: 64
+// columns under the 128-byte swizzle (hd 64 and 128: HD / 64 boxes a row),
+// or hd 32's whole 64-byte row under the 64-byte swizzle.
 template <int HD>
 struct WgLayout {
-  static constexpr int NH = HD / 64;             // 64-column boxes per row
+  static constexpr int BOX = HD < 64 ? HD : 64;  // bf16 columns of a box
+  static constexpr int SW = 2 * BOX;             // bytes of a swizzled row
+  static constexpr int NH = HD / BOX;            // boxes per row
   static constexpr int Q_BYTES = NH * WQ * SW;   // one Q tile
   static constexpr int KV_BYTES = NH * WK * SW;  // one K (or V) tile
   static constexpr int K_OFF = Q_BYTES;
@@ -169,13 +176,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle: 8-row groups 1024 B
-// apart (SBO); `lbo` is the MN-direction step between 64-column boxes of
-// an MN-major operand (unused for K-major)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+// shared-memory matrix descriptor for rows of SW bytes under the SW-byte
+// swizzle (128 or 64): 8-row groups 8 SW bytes apart (SBO), layout type 1
+// (128-byte swizzle) or 2 (64-byte); `lbo` is the MN-direction step
+// between boxes of an MN-major operand (unused for K-major, and when the
+// operand's N is one box)
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
+  static_assert(SW == 128 || SW == 64, "128- or 64-byte swizzle");
   return (uint64_t)((addr >> 4) & 0x3FFF) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((8 * SW) >> 4) << 32) |
+         ((uint64_t)(SW == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -264,13 +276,27 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 }
 
 
+// d (m64 x n32) += A (registers) * B (smem, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (HD == 128)
     wgmma_rs_n128(d, a, db);
-  else
+  else if constexpr (HD == 64)
     wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n32(d, a, db);
 }
 
 template <int HD>
@@ -281,6 +307,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 float* __restrict__ lse, int Hq, int Hk, int Sq, int Skv,
                 int q0, int causal, int window, float scale) {
   using L = WgLayout<HD>;
+  constexpr int SW = L::SW;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
@@ -317,7 +344,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_bar, L::Q_BYTES);
 #pragma unroll
       for (int x = 0; x < L::NH; ++x)
-        tma_load(q_s + x * WQ * SW, &tq, q_bar, x * 64, first, b * Hq + h);
+        tma_load(q_s + x * WQ * SW, &tq, q_bar, x * L::BOX, first, b * Hq + h);
       for (int i = 0; i < ntiles; ++i) {
         const int st = i % STAGES;
         if (i >= STAGES) mbar_wait(empty_bar + 8 * st, (i / STAGES - 1) & 1);
@@ -326,10 +353,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const int k0 = (t_lo + i) * WK;
 #pragma unroll
         for (int x = 0; x < L::NH; ++x) {
-          tma_load(k_s + st * L::KV_BYTES + x * WK * SW, &tk, fb, x * 64, k0,
-                   b * Hk + hk);
-          tma_load(v_s + st * L::KV_BYTES + x * WK * SW, &tv, fb, x * 64, k0,
-                   b * Hk + hk);
+          tma_load(k_s + st * L::KV_BYTES + x * WK * SW, &tk, fb, x * L::BOX,
+                   k0, b * Hk + hk);
+          tma_load(v_s + st * L::KV_BYTES + x * WK * SW, &tv, fb, x * L::BOX,
+                   k0, b * Hk + hk);
         }
       }
     }
@@ -364,10 +391,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int x = 0; x < L::NH; ++x)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < L::BOX / 16; ++kk)
         wgmma_ss_n128(
-            sacc, sw128_desc(q_s + x * WQ * SW + wg * 64 * SW + kk * 32, 0),
-            sw128_desc(k_s + st * L::KV_BYTES + x * WK * SW + kk * 32, 0),
+            sacc, sw_desc<SW>(q_s + x * WQ * SW + wg * 64 * SW + kk * 32, 0),
+            sw_desc<SW>(k_s + st * L::KV_BYTES + x * WK * SW + kk * 32, 0),
             (x | kk) != 0);
     wg_commit();
     wg_wait0();
@@ -426,14 +453,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     }
 
     // O += P V: V's rows (keys) are the reduction dimension, so V is the
-    // MN-major operand; 16 keys are 2048 bytes of a box
+    // MN-major operand; 16 keys are 16 SW bytes of a box
     fence_regs<HD / 2>(oacc);
     fence_regs<4 * (WK / 16)>(&pa[0][0]);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < WK / 16; ++j)
       wgmma_pv<HD>(oacc, pa[j],
-                   sw128_desc(v_s + st * L::KV_BYTES + j * 16 * SW, WK * SW));
+                   sw_desc<SW>(v_s + st * L::KV_BYTES + j * 16 * SW, WK * SW));
     wg_commit();
     wg_wait0();
     fence_regs<HD / 2>(oacc);
@@ -622,21 +649,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (hd, rows, planes) bf16 tensor map with (64, box_rows, 1) boxes,
-// 128-byte swizzle, zero fill past the edges
+// a (hd, rows, planes) bf16 tensor map with (box_cols, box_rows, 1)
+// boxes, swizzled over box_cols * 2 bytes (128 or 64), zero fill past the
+// edges
 bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows,
-                int planes, int box_rows) {
+                int planes, int box_cols, int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)rows * hd * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -644,10 +674,11 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
                 int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int BOX = WgLayout<HD>::BOX;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, HD, Sq, B * Hq, WQ) ||
-      !tensor_map(&tk, k, HD, Skv, B * Hk, WK) ||
-      !tensor_map(&tv, v, HD, Skv, B * Hk, WK))
+  if (!tensor_map(&tq, q, HD, Sq, B * Hq, BOX, WQ) ||
+      !tensor_map(&tk, k, HD, Skv, B * Hk, BOX, WK) ||
+      !tensor_map(&tv, v, HD, Skv, B * Hk, BOX, WK))
     return (int)cudaErrorInvalidValue;
   const int smem = WgLayout<HD>::SMEM;
   const int err = (int)cudaFuncSetAttribute(
@@ -672,12 +703,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
+  if (dtype == 0 && hd == 32)
+    launch_f32<32>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
+                   scale, st);
+  else if (dtype == 0 && hd == 64)
     launch_f32<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
                    scale, st);
   else if (dtype == 0 && hd == 128)
     launch_f32<128>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
                     scale, st);
+  else if (dtype == 1 && hd == 32)
+    return launch_bf16<32>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
+                           window, scale, st);
   else if (dtype == 1 && hd == 64)
     return launch_bf16<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
                            window, scale, st);

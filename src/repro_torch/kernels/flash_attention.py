@@ -116,6 +116,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the kernels are instantiated for (both directions)
+HEAD_DIMS = (32, 64, 128)
 _fn = None
 
 
@@ -145,8 +147,8 @@ def _check(q, k, v):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
     B, Hq, _, hd = q.shape
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not in (64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -181,8 +183,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1. CPU tensors -> :func:`flash_attention_plain`; CUDA tensors ->
-    the Hopper kernel (f32 or bf16, hd 64 or 128, contiguous) or an
-    exception."""
+    the Hopper kernel (f32 or bf16, hd 32, 64 or 128, contiguous) or
+    an exception."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _launch(q, k, v, causal=causal, window=window, q0=q0,
@@ -309,7 +311,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """K1 backward: (dq, dk, dv) from the forward's inputs, its ``out``
     and ``lse``, and ``dout``. CPU tensors ->
     :func:`flash_attention_bwd_plain`; CUDA tensors -> the Hopper kernel
-    (f32 or bf16, hd 64 or 128, contiguous) or an exception."""
+    (f32 or bf16, hd 32, 64 or 128, contiguous) or an exception."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q0 != 0:
         raise ValueError(f"the flash-attention backward has no query "

@@ -1,8 +1,15 @@
-"""The tiered stores, the coordinators, the plan executor and the
-SSD-offloaded training engine of the port."""
+"""The tiered stores, the coordinators, the plan executor, the
+SSD-offloaded training engine of the port, its crash-consistent
+checkpoints and the pinned-buffer packing DP."""
+from repro_torch.offload.buffers import (naive_padded, pack,  # noqa: F401
+                                         waste_ratio)
+from repro_torch.offload.checkpoint import (CheckpointError,  # noqa: F401
+                                            load_manifest, restore_checkpoint,
+                                            save_checkpoint)
 from repro_torch.offload.coordinators import (  # noqa: F401
-    InterLayerTensorCoordinator, KVBlockCoordinator, OptimizerStepCoordinator,
-    ParameterCoordinator, tree_from_bytes, tree_to_bytes)
+    ActivationCoordinator, InterLayerTensorCoordinator, KVBlockCoordinator,
+    LayerResiduals, OptimizerStepCoordinator, ParameterCoordinator,
+    tree_from_bytes, tree_to_bytes)
 from repro_torch.offload.engine import (OffloadConfig,  # noqa: F401
                                         OffloadEngine, offload_state)
 from repro_torch.offload.executor import execute_plan  # noqa: F401

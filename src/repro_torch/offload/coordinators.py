@@ -20,6 +20,12 @@
   right after a layer's backward (an engine request, overlapped), the α
   fraction is flushed at the plan epilogue and gates the layer's next
   forward fetch (§4.4).
+* ActivationCoordinator — the activation-spill stream: one layer
+  forward's saved autograd tensors (:class:`LayerResiduals`) flattened to
+  one byte payload, the ``x_act`` head kept in host memory and the tail
+  streamed to SSD at ``IOPriority.ACT``; the tail is not cached, so every
+  ``get`` re-reads it. Restored tensors come back on the device with
+  their dtypes, shapes and strides, and backward runs from them.
 * KVBlockCoordinator — the serving-time KV-cache block stream: an
   evicted request's per-unit cache tree is flattened to one byte payload
   through torch byte views, padded to a whole number of fixed-size blocks
@@ -34,9 +40,7 @@ the engine attaches its ``repro_torch.obs.Tracer`` (the ``tracer``
 attribute), records one lifecycle span per hinted prefetch.
 
 Device tensors cross to the host only on the caller's (executor's)
-thread, before any ``engine.submit``: no engine worker touches CUDA. The
-activation-spill stream (``ActivationCoordinator``) comes with a later
-slice.
+thread, before any ``engine.submit``: no engine worker touches CUDA.
 """
 from __future__ import annotations
 
@@ -611,6 +615,271 @@ class OptimizerStepCoordinator:
             key = f"pending_grad:{l}"
             if key in self.host:
                 self.host.pop(key)
+
+
+def _dense_strides(shape, stride) -> bool:
+    """Whether ``stride`` lays ``shape``'s elements out without gaps or
+    overlaps (some permutation of a contiguous layout): only such
+    layouts can be rebuilt by ``empty_strided`` + ``copy_``."""
+    dims = sorted((st, n) for n, st in zip(shape, stride) if n != 1)
+    want = 1
+    for st, n in dims:
+        if st != want:
+            return False
+        want *= n
+    return True
+
+
+class LayerResiduals:
+    """One layer forward's autograd graph, with every tensor autograd
+    saved for its backward held outside the graph.
+
+    The forward runs under ``torch.autograd.graph.saved_tensors_hooks``
+    whose pack hook appends the tensor to ``saved`` and returns its index;
+    the unpack hook returns ``saved[index]``. The graph itself keeps only
+    the indices, so swapping the entries of ``saved`` (spill: out to the
+    host, back on ``get``) changes where backward reads its inputs without
+    touching the graph. ``saved`` is that same list object for the
+    residuals' whole life (filled and emptied in place, never rebound),
+    and holds detached tensors, so it never leads back to the graph. ``out_edge`` / ``in_edges`` are the gradient
+    edges of the layer output and of its leaves ``(p, x)``; the leaves'
+    own storage is released with :meth:`release` (autograd's
+    accumulate-grad nodes hold the leaf tensors, so without that the
+    layer's parameter buffer and input would stay on the device for as
+    long as the graph)."""
+
+    def __init__(self, saved: list):
+        self.saved = saved
+        self.out_edge = None
+        self.in_edges = ()
+        self._leaves = ()
+        self._index: Optional[List[int]] = None
+
+    def bind(self, y: torch.Tensor, leaves: Tuple[torch.Tensor, ...]):
+        """Record the gradient edges of the forward's output and leaves."""
+        from torch.autograd.graph import get_gradient_edge
+        self.out_edge = get_gradient_edge(y)
+        self.in_edges = tuple(get_gradient_edge(t) for t in leaves)
+        self._leaves = leaves
+
+    def distinct(self) -> List[torch.Tensor]:
+        """The saved tensors without repeats: two entries that view the
+        same storage at the same offset, shape, stride and type are one
+        (autograd saves a layer input once for each product it feeds)."""
+        keys: Dict[tuple, int] = {}
+        out, index = [], []
+        for t in self.saved:
+            key = (t.untyped_storage().data_ptr(), t.storage_offset(),
+                   tuple(t.shape), t.stride(), t.dtype, t.device)
+            if key not in keys:
+                keys[key] = len(out)
+                out.append(t)
+            index.append(keys[key])
+        self._index = index
+        return out
+
+    def nbytes(self) -> int:
+        """Bytes of one payload: the distinct saved tensors' elements."""
+        return sum(t.numel() * t.element_size() for t in self.distinct())
+
+    def release(self):
+        """Drop every device tensor: the saved entries (after ``put`` has
+        copied them out) and the leaves' storage."""
+        for i in range(len(self.saved)):
+            self.saved[i] = None
+        for t in self._leaves:
+            t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+        self._leaves = ()
+
+    def restore(self, tensors: List[torch.Tensor]):
+        """Put the tensors :meth:`distinct` listed back in every slot."""
+        for i, j in enumerate(self._index):
+            self.saved[i] = tensors[j]
+
+
+class ActivationCoordinator:
+    """Activation (autograd-residual) spill/fetch stream, keyed (layer,
+    micro-batch).
+
+    Layout per key: the payload — the distinct saved tensors of a
+    :class:`LayerResiduals`, each as its raw bytes, concatenated — has its
+    ``x_act`` head in the host store (``act:l:m:h``); the tail is written
+    to SSD asynchronously (``act:l:m:s``, category ``"act"`` =>
+    ``IOPriority.ACT``) and NOT cached — ``get`` re-reads it. The graph
+    and each tensor's dtype, shape and stride stay in coordinator memory
+    (structure, not data; the same every iteration). ``nbytes``, when
+    set, is the payload size every ``put`` must have (the engine sizes it
+    once, before the plan is compiled)."""
+
+    def __init__(self, x_act: float, host: HostStore, ssd: SSDStore,
+                 meter: TrafficMeter, engine: IOEngine, device="cpu"):
+        self.x = x_act
+        self.host = host
+        self.ssd = ssd
+        self.meter = meter
+        self.engine = engine
+        self.device = torch.device(device)
+        self.nbytes: Optional[int] = None
+        self._res: Dict[Tuple[int, int], LayerResiduals] = {}
+        self._meta: Dict[Tuple[int, int], list] = {}
+        self._k: Dict[Tuple[int, int], int] = {}
+        self._n: Dict[Tuple[int, int], int] = {}
+        self._pending: Dict[Tuple[int, int], IORequest] = {}     # spills
+        self._prefetched: Dict[Tuple[int, int], IORequest] = {}  # reads
+        self.la_hits = 0        # get() found a landed tail prefetch
+        self.la_misses = 0      # get() read the tail synchronously
+        self.tracer = None      # engine-attached repro_torch.obs.Tracer
+        self._hint_t: Dict[Tuple[int, int], float] = {}
+
+    def _name(self, l: int, m: int) -> str:
+        return f"act:{l}:{m}"
+
+    def put(self, l: int, m: int, res: LayerResiduals):
+        """Stream micro-batch m's layer-l residuals out (async tail); the
+        residuals' device tensors are released."""
+        tensors = res.distinct()
+        metas = [(t.dtype, tuple(t.shape), t.stride()) for t in tensors]
+        n = sum(t.numel() * t.element_size() for t in tensors)
+        if self.nbytes is not None and n != self.nbytes:
+            raise RuntimeError(f"act payload of layer {l} micro-batch {m} "
+                               f"is {n} bytes, the plan's {self.nbytes}")
+        buf = np.empty(n, np.uint8)
+        off = 0
+        for t in tensors:
+            nb = t.numel() * t.element_size()
+            if nb:
+                torch.from_numpy(buf[off:off + nb]).copy_(
+                    t.detach().contiguous().reshape(-1).view(torch.uint8))
+            off += nb
+        del tensors
+        res.release()
+        _xfer(self.meter, self.engine, "act", "gpu->cpu", n)
+        key = (l, m)
+        k = int(round(self.x * n))
+        self._res[key] = res
+        self._meta[key] = metas
+        self._k[key] = k
+        self._n[key] = n
+        if k:
+            self.host.put(self._name(l, m) + ":h", buf[:k].copy())
+        if k < n:
+            old = self._pending.pop(key, None)
+            if old is not None:
+                old.result()    # never two in-flight spills of one name
+            self._pending[key] = self.ssd.write_async(
+                self._name(l, m) + ":s", buf[k:], "act")
+
+    def prefetch(self, l: int, m: int):
+        """``PREFETCH_ACT`` hint: start the tail's SSD read now (ACT
+        priority). No-op if nothing is spilled, or the spill itself is
+        still in flight (a request body must never wait on another
+        request)."""
+        key = (l, m)
+        if key in self._prefetched or key not in self._n:
+            return
+        k, n = self._k[key], self._n[key]
+        if k >= n:
+            return
+        wr = self._pending.get(key)
+        if wr is not None and not wr.done():
+            return
+        name = self._name(l, m) + ":s"
+        self._prefetched[key] = self.engine.submit(
+            lambda: self.ssd.read(name, "act"),
+            priority=IOPriority.ACT, category="act", route="ssd->cpu",
+            nbytes=n - k)
+        _hint_issue(self, key)
+
+    def get(self, l: int, m: int) -> LayerResiduals:
+        """The residuals back on the device: host head + SSD tail, each
+        tensor rebuilt with its dtype, shape and stride. A failed spill
+        surfaces HERE — the executor's fallback point for degrading to
+        recompute."""
+        key = (l, m)
+        name = self._name(l, m)
+        req = self._prefetched.pop(key, None)
+        wr = self._pending.pop(key, None)
+        try:
+            if wr is not None:
+                wr.result()
+        except BaseException:
+            if req is not None and not req.cancel():
+                try:
+                    req.result()
+                except Exception:
+                    pass        # the spill's error is what propagates
+            raise
+        k, n = self._k[key], self._n[key]
+        if req is not None:
+            hit = req.done()         # evaluate once: it can flip mid-read
+            self.la_hits += hit
+            self.la_misses += not hit
+            _hint_settle(self, "act", key, "hit" if hit else "late")
+            tail = req.result()
+        elif k < n:
+            self.la_misses += 1
+            tail = self.ssd.read(name + ":s", "act")
+        else:
+            tail = None
+        head = self.host.pop(name + ":h") if k else np.zeros(0, np.uint8)
+        if tail is None:
+            buf = head
+        elif head.size:
+            buf = np.concatenate([head, tail])
+        else:
+            buf = tail
+        _xfer(self.meter, self.engine, "act", "cpu->gpu", buf.nbytes)
+        tensors, off = [], 0
+        for dt, shp, st in self._meta[key]:
+            t = torch.empty(shp, dtype=dt, device=self.device)
+            nb = t.numel() * t.element_size()
+            if nb:
+                t.reshape(-1).view(torch.uint8).copy_(
+                    torch.from_numpy(buf[off:off + nb]))
+            if t.stride() != st and _dense_strides(shp, st):
+                t = torch.empty_strided(shp, st, dtype=dt,
+                                        device=self.device).copy_(t)
+            tensors.append(t)
+            off += nb
+        res = self._res[key]
+        res.restore(tensors)
+        self._forget(key)
+        return res
+
+    def _forget(self, key):
+        for d in (self._res, self._meta, self._k, self._n):
+            d.pop(key, None)
+
+    def drop(self, l: int, m: int):
+        """Abandon one key: cancel/drain its in-flight requests
+        (swallowing their errors — the caller is falling back) and free
+        the host head."""
+        key = (l, m)
+        _hint_settle(self, "act", key, "cancelled")
+        for d in (self._prefetched, self._pending):
+            req = d.pop(key, None)
+            if req is not None:
+                _cancel_or_drain(req)
+        name = self._name(l, m)
+        if name + ":h" in self.host:
+            self.host.pop(name + ":h")
+        self._forget(key)
+
+    def clear(self):
+        """Abandon everything (mid-plan fault cleanup)."""
+        keys = set(self._n) | set(self._pending) | set(self._prefetched)
+        for l, m in keys:
+            self.drop(l, m)
+
+    def wait_pending(self):
+        """Drain outstanding spills/reads (finish/teardown)."""
+        for d in (self._pending, self._prefetched):
+            for req in list(d.values()):
+                try:
+                    req.result()
+                except (CancelledError, OSError):
+                    pass
+            d.clear()
 
 
 class KVBlockCoordinator:

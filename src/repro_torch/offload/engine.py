@@ -24,10 +24,15 @@ reference keeps none either). Every layer's attention runs K1
 A layer's parameters are one flat vector in the reference's
 ``_flatten_tree`` order (leaves in sorted-key order); ``unflatten``
 returns views of it, so one ``torch.autograd.grad`` with respect to the
-flat tensor gives the layer's whole gradient. Backward recomputes the
-layer from its boundary checkpoint (``activation_policy="recompute"``,
-the paper's); the activation-spill policies, the plan hot swap and
-checkpoints come with later slices and raise ``NotImplementedError``.
+flat tensor gives the layer's whole gradient. Both activation policies
+run backward from the tensors autograd saved in a layer forward
+(:class:`repro_torch.offload.coordinators.LayerResiduals`):
+``"recompute"`` (the paper's) re-runs the forward from the boundary
+checkpoint at backward time, ``"spill"`` streams the saved tensors out
+after the forward and back before the backward, and ``"auto"`` picks one
+with the perf model. Crash-consistent checkpoints are
+:mod:`repro_torch.offload.checkpoint`; the plan hot swap comes with a
+later slice and raises ``NotImplementedError``.
 
 Device tensors cross to the host only on the executor's thread; the I/O
 engine's workers touch numpy arrays alone.
@@ -52,7 +57,9 @@ from repro_torch.models import blocks as blk
 from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
 from repro_torch.models.model import _period_slice, _xent_chunk
 from repro_torch.obs import Tracer
-from repro_torch.offload.coordinators import (InterLayerTensorCoordinator,
+from repro_torch.offload.coordinators import (ActivationCoordinator,
+                                              InterLayerTensorCoordinator,
+                                              LayerResiduals,
                                               OptimizerStepCoordinator,
                                               ParameterCoordinator)
 from repro_torch.offload.executor import execute_plan, stall_seconds
@@ -63,12 +70,8 @@ from repro_torch.optim.cpu_adam import CpuAdam
 __all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
            "bind_block_fns", "mb_order", "split_microbatches",
            "shifted_labels", "engine_workload", "lookahead_stats",
-           "offload_state"]
-
-#: what the port's engine does not run yet, and the slice that brings it
-_SPILL_SLICE = ("activation_policy='spill'/'auto' (the activation-spill "
-                "stream) is ported with a later slice; this slice runs "
-                "'recompute'")
+           "offload_state", "act_residual_nbytes",
+           "resolve_activation_policy"]
 
 
 @dataclasses.dataclass
@@ -86,8 +89,8 @@ class OffloadConfig:
     param_dtype: str = "float32"        # "float32" | "bfloat16"
     io: Optional[IOConfig] = None       # paths/chunking/budget/bandwidth
                                         # (None: single path = the workdir)
-    activation_policy: str = "recompute"  # "recompute" (this slice) |
-                                        # "spill" | "auto" (later slice)
+    activation_policy: str = "recompute"  # "recompute" | "spill" |
+                                        # "auto" (priced by the perf model)
     machine: Optional[MachineParams] = None  # link rates for "auto"
     prefetch_depth: int = 1             # cross-stream lookahead depth (0
                                         # disables the hints; byte
@@ -184,10 +187,14 @@ def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
     """The per-layer / embedding / head functions the executor calls.
 
     ``layer_fwd_res`` runs the layer's forward with autograd on the
-    leaves ``(p_flat, x)`` and returns ``(y, residuals)``;
-    ``layer_bwd_res`` is one ``torch.autograd.grad`` from those
-    residuals, returning ``(dx, dp in f32)``. ``adam_dev`` is K2 over a
-    device-resident tensor and its moments."""
+    leaves ``(p_flat, x)``, every saved tensor caught by
+    ``saved_tensors_hooks`` into a :class:`LayerResiduals`, and returns
+    ``(y, residuals)``; ``layer_bwd_res`` is one ``torch.autograd.grad``
+    from those residuals, returning ``(dx, dp in f32)``. Both activation
+    policies run backward from such residuals — spill restores them from
+    storage, recompute re-runs ``layer_fwd_res`` at backward time — so
+    with a deterministic forward their gradients are bitwise equal.
+    ``adam_dev`` is K2 over a device-resident tensor and its moments."""
 
     def block(p_flat, x):
         y, _, _ = blk.block_apply(unflatten(p_flat), x, cfg, kind,
@@ -201,13 +208,32 @@ def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
     def layer_fwd_res(p_flat, x):
         p = p_flat.detach().requires_grad_()
         xx = x.detach().requires_grad_()
-        with torch.enable_grad():
+        # the graph keeps the unpack hook, so nothing the hook reaches may
+        # lead back to the graph: a cycle through autograd's C++ nodes is
+        # one Python's collector cannot free, and it would keep every
+        # payload whose backward never runs (the sizing forward, a skipped
+        # spill). So the hooks close over the list, not over ``res``, and
+        # the list holds detached tensors (an autograd output saved for
+        # its own backward would otherwise hold its node through grad_fn)
+        saved = []
+
+        def pack(t):
+            saved.append(t.detach())
+            return len(saved) - 1
+
+        def unpack(i):
+            return saved[i]
+
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(pack, unpack):
             y = block(p, xx)
-        return y.detach(), (p, xx, y)
+        res = LayerResiduals(saved)
+        res.bind(y, (p, xx))
+        return y.detach(), res
 
     def layer_bwd_res(res, dy):
-        p, xx, y = res
-        dp, dx = torch.autograd.grad(y, (p, xx), dy)
+        dp, dx = torch.autograd.grad(res.out_edge, res.in_edges, dy)
+        res.saved.clear()
         return dx, dp.float()
 
     def embed_fwd(embed, tokens):
@@ -256,6 +282,48 @@ def bind_block_fns(obj, fns: Dict[str, object]) -> None:
     obj.j_head_bwd = fns["head_bwd"]
     obj.j_embed_bwd = fns["embed_bwd"]
     obj.j_adam_dev = fns["adam_dev"]
+
+
+def act_residual_nbytes(j_layer_fwd_res, P: int, dtype, micro_batch: int,
+                        seq_len: int, d_model: int, device) -> int:
+    """The exact byte size of one (layer, micro-batch) residual payload —
+    what each ``SPILL_ACT`` / ``FETCH_ACT`` moves: one forward at the
+    micro-batch's shapes (zero params and input, on ``device``, so on a
+    card it runs the kernels) whose distinct saved tensors are counted
+    and dropped. Read by ``PlanCosts.from_engine`` through the engine's
+    ``act_nbytes``."""
+    p = torch.zeros((P,), dtype=dtype, device=device)
+    x = torch.zeros((micro_batch, seq_len, d_model), dtype=dtype,
+                    device=device)
+    _, res = j_layer_fwd_res(p, x)
+    return res.nbytes()
+
+
+def resolve_activation_policy(ocfg: OffloadConfig, cfg, P: int,
+                              itemsize: int, act_nbytes: int) -> str:
+    """Resolve the ``activation_policy`` knob to "recompute" | "spill".
+    "auto" prices both policies with the perf model
+    (:func:`repro_torch.core.perfmodel.pick_activation_policy`) on the
+    engine's own workload bytes (its dtype and residual size) and the
+    machine from ``ocfg.machine``, the configured bandwidth caps, or the
+    defaults."""
+    pol = ocfg.activation_policy
+    if pol in ("recompute", "spill"):
+        return pol
+    if pol != "auto":
+        raise ValueError(f"unknown activation_policy {pol!r}")
+    from repro_torch.core.perfmodel import (machine_from_bandwidth,
+                                            pick_activation_policy)
+    m = ocfg.machine
+    if m is None:
+        bw = ocfg.io.bandwidth if ocfg.io is not None else None
+        m = machine_from_bandwidth(bw) if bw else MachineParams()
+    w = engine_workload(ocfg, cfg, P, itemsize, act_nbytes)
+    return pick_activation_policy(w, m, ocfg.num_microbatches,
+                                  ocfg.resolved_wave_size(), ocfg.alpha,
+                                  ocfg.ratios,
+                                  lookahead=ocfg.resolved_prefetch_depth()
+                                  > 0)
 
 
 def engine_workload(ocfg: OffloadConfig, cfg, P: int, itemsize: int,
@@ -327,8 +395,6 @@ class OffloadEngine:
         if len(plan.period) != 1 or plan.prefix or plan.suffix:
             raise ValueError("the offload engine drives homogeneous stacks "
                              "of one-block periods (num_layers >= 2)")
-        if ocfg.activation_policy != "recompute":
-            raise NotImplementedError(_SPILL_SLICE)
         self.cfg = cfg
         self.ocfg = ocfg
         self.kind = plan.period[0]
@@ -430,18 +496,29 @@ class OffloadEngine:
             self.m_master, self.m_m, self.m_v, self.p_vecs, self.host,
             self.meter, self.ioe, CpuAdam(lr=ocfg.lr), ocfg.alpha,
             param_dtype=self.dtype)
+        self.act_c = ActivationCoordinator(x.act, self.host, self.ssd,
+                                           self.meter, self.ioe,
+                                           device=self.device)
         for c in self._coordinators():
             c.tracer = self.tracer
 
         bind_block_fns(self, build_block_fns(cfg, self.kind,
                                              self._unflatten))
-        self.act_policy = "recompute"
-        self.act_nbytes = 0        # no activation stream in this slice
-        self.act_fallbacks = 0
+        # size the activation stream exactly (one (layer, mb) residual
+        # payload) and resolve the recompute / spill / auto knob
+        self.act_nbytes = act_residual_nbytes(
+            self.j_layer_fwd_res, self.P, self.dtype, ocfg.micro_batch,
+            ocfg.seq_len, cfg.d_model, self.device)
+        self.act_c.nbytes = self.act_nbytes
+        self.act_policy = resolve_activation_policy(
+            ocfg, cfg, self.P, self.dtype.itemsize, self.act_nbytes)
+        self.act_fallbacks = 0      # micro-batches degraded to recompute
         self.op_seconds: Dict[str, float] = defaultdict(float)
         self.hint_skips = 0         # hints skipped under backpressure
-        self.act_skips = 0
+        self.act_skips = 0          # "auto" spills skipped per (l, m)
         self.backpressure = ocfg.backpressure
+        self.act_adaptive = (ocfg.activation_policy == "auto"
+                             and self.act_policy == "spill")
         self._plan = self._compile_plan()
 
     # ------------------------------------------------------------------
@@ -455,7 +532,8 @@ class OffloadEngine:
         interprets the same plan."""
         depth = self.ocfg.resolved_prefetch_depth()
         spec = PlanSpec(L=self.L, M=self.ocfg.num_microbatches,
-                        alpha=self.ocfg.alpha, ranks=1, act_spill=False)
+                        alpha=self.ocfg.alpha, ranks=1,
+                        act_spill=(self.act_policy == "spill"))
         # depth 0 = the full lookahead-off baseline: no hints AND the
         # prologue OPT_LATE ordering
         plan = compile_wave(spec, self.ocfg.resolved_wave_size(),
@@ -477,13 +555,14 @@ class OffloadEngine:
     # ------------------------------------------------------------------
     def finish(self):
         """Flush any α-pending optimizer work and drain outstanding
-        checkpoint spills (end of training): afterwards the meters are
-        complete and deterministic."""
+        checkpoint and activation spills (end of training): afterwards the
+        meters are complete and deterministic."""
         for l in range(self.L):
             self.opt_c.flush_late(l, self.step_num)
             self.opt_c.wait_late(l)
         self.opt_c.wait_all()
         self.ckpt_c.wait_pending()
+        self.act_c.wait_pending()
 
     def apply_plan_config(self, *args, **kwargs):
         raise NotImplementedError(
@@ -491,14 +570,19 @@ class OffloadEngine:
             "with a later slice")
 
     def save_checkpoint(self, directory: str) -> str:
-        raise NotImplementedError(
-            "save_checkpoint (offload/checkpoint.py) is ported with a later "
-            "slice")
+        """Crash-consistent checkpoint of the full trainable state
+        (journaled manifest + CRC32C-verified tensors; see
+        :mod:`repro_torch.offload.checkpoint`). Returns the manifest
+        path."""
+        from repro_torch.offload.checkpoint import save_checkpoint
+        return save_checkpoint(self, directory)
 
     def restore_checkpoint(self, directory: str) -> int:
-        raise NotImplementedError(
-            "restore_checkpoint (offload/checkpoint.py) is ported with a "
-            "later slice")
+        """Restore from :meth:`save_checkpoint` output (all-or-nothing,
+        verified before any state changes). Returns the restored
+        ``step_num``; the continued trajectory is bitwise (f32)."""
+        from repro_torch.offload.checkpoint import restore_checkpoint
+        return restore_checkpoint(self, directory)
 
     def traffic(self) -> Dict[str, int]:
         out = self.meter.snapshot()
@@ -506,7 +590,7 @@ class OffloadEngine:
         return out
 
     def _coordinators(self):
-        return (self.params_c, self.ckpt_c, self.opt_c)
+        return (self.params_c, self.ckpt_c, self.act_c, self.opt_c)
 
     def _lookahead_stats(self) -> Dict[str, object]:
         return lookahead_stats(self, self._coordinators())
@@ -540,6 +624,7 @@ class OffloadEngine:
         self._closed = True
         self.params_c.reset()
         self.ckpt_c.wait_pending()
+        self.act_c.wait_pending()
         self.opt_c.wait_all()
         self.ssd.close()              # removes stripe files from the paths
         self.ioe.shutdown(wait=True)

@@ -27,16 +27,24 @@ Stall metering: every op's wall-clock accumulates into
 device blocks on. With the engine's tracer enabled each op is also one
 span on the executor's track. ``BARRIER`` synchronises the card.
 
+Activation stream: under ``act_spill`` plans ``FWD`` keeps the layer's
+autograd residuals, ``SPILL_ACT`` streams them out (or, with
+``eng.act_adaptive``, skips the spill while the SSD write queue is
+saturated, counted in ``eng.act_skips``), ``PREFETCH_ACT`` hints the
+tail read and ``FETCH_ACT`` brings them back; a failed spill or fetch
+falls back to the checkpoint re-read (``eng.act_fallbacks``) and ``BWD``
+recomputes. Both paths run backward from the same saved tensors, so the
+fallback changes no bit.
+
 Fault discipline: a mid-plan exception must not leak device slots or
 host buffers into the next step — the executor releases its registers,
 cancels outstanding parameter prefetches and α gates, clears the
-checkpoint coordinator's device-kept and host state and drains optimizer
-requests before re-raising.
+checkpoint and activation coordinators' device-kept and host state and
+drains optimizer requests before re-raising.
 
-The activation-spill stream (``SPILL_ACT`` / ``FETCH_ACT`` /
-``PREFETCH_ACT``) and the data-parallel ops (``ALLGATHER``,
-``REDUCE_SCATTER``, ``ALLREDUCE_HEAD``, ``FOLD_*``) come with later
-slices and raise ``NotImplementedError`` here.
+The data-parallel ops (``ALLGATHER``, ``REDUCE_SCATTER``,
+``ALLREDUCE_HEAD``, ``FOLD_*``) come with a later slice and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -60,10 +68,6 @@ STALL_OPS = frozenset(o.name for o in (
     Op.BARRIER))
 
 _LATER = {
-    Op.SPILL_ACT: "the activation-spill stream (activation_policy='spill')",
-    Op.FETCH_ACT: "the activation-spill stream (activation_policy='spill')",
-    Op.PREFETCH_ACT: "the activation-spill stream "
-                     "(activation_policy='spill')",
     Op.ALLGATHER: "the data-parallel engine",
     Op.REDUCE_SCATTER: "the data-parallel engine",
     Op.ALLREDUCE_HEAD: "the data-parallel engine",
@@ -78,11 +82,12 @@ def stall_seconds(op_seconds) -> float:
 
 
 def _saturated(ioe, frac: float, route: str) -> bool:
-    """The backpressure signal: should a lookahead hint on ``route`` be
-    skipped right now? Either the engine's in-flight byte budget is past
-    ``frac`` utilisation, or the per-path channels already hold more than
-    ``frac * 16`` chunks of unfinished work on this route (prefetch only
-    into idle bandwidth). Reads only O(1) counters."""
+    """The backpressure signal: should a lookahead hint (or an "auto"
+    activation spill) on ``route`` be skipped right now? Either the
+    engine's in-flight byte budget is past ``frac`` utilisation, or the
+    per-path channels already hold more than ``frac * 16`` chunks of
+    unfinished work on this route (prefetch only into idle bandwidth).
+    Reads only O(1) counters."""
     if ioe.inflight_bytes > frac * ioe.budget_bytes:
         return True
     return ioe.route_backlog(route) > frac * 16 * ioe.chunk_bytes
@@ -98,16 +103,21 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
     step = eng.step_num
     denom = float(np.prod(tokens.shape) - tokens.shape[0])
     bp = eng.backpressure
+    spill = plan.spec.act_spill
+    act_adaptive = eng.act_adaptive
     op_seconds = eng.op_seconds
     tracer = eng.tracer
     rec = tracer.enabled
     wave = -1                       # becomes 0 at the first PHASE("fwd")
 
+    def skip_evt(kind: str, op):
+        if rec:
+            tracer.instant(EXEC_TRACK, f"skip:{kind}", CAT_HINT,
+                           op=op.op.name, l=op.l, m=op.m)
+
     def skip_hint(op):
         eng.hint_skips += 1
-        if rec:
-            tracer.instant(EXEC_TRACK, "skip:hint", CAT_HINT,
-                           op=op.op.name, l=op.l, m=op.m)
+        skip_evt("hint", op)
 
     def tok(m: int) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(mbs[m])).long().to(dev)
@@ -142,8 +152,44 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
             if k is Op.FETCH_CKPT:
                 regs[("x", op.m)] = eng.ckpt_c.get_ckpt_fwd(op.l, op.m)
             elif k is Op.FWD:
-                regs[("y", op.m)] = eng.j_layer_fwd(p_dev,
-                                                    regs.pop(("x", op.m)))
+                x_in = regs.pop(("x", op.m))
+                if spill:
+                    # keep the layer's residuals for the act stream
+                    regs[("y", op.m)], regs[("res", op.m)] = \
+                        eng.j_layer_fwd_res(p_dev, x_in)
+                else:
+                    regs[("y", op.m)] = eng.j_layer_fwd(p_dev, x_in)
+                del x_in
+            elif k is Op.SPILL_ACT:
+                res = regs.pop(("res", op.m))
+                if act_adaptive and _saturated(eng.ioe, bp, "cpu->ssd"):
+                    # the write queue is saturated: drop this residual and
+                    # let FETCH_ACT degrade the micro-batch to recompute
+                    eng.act_skips += 1
+                    skip_evt("act_spill", op)
+                else:
+                    try:
+                        eng.act_c.put(op.l, op.m, res)
+                    except Exception:
+                        # a failed spill degrades this micro-batch to
+                        # recompute (its checkpoint tier is intact); the
+                        # FETCH_ACT for this key then finds nothing
+                        eng.act_c.drop(op.l, op.m)
+                del res
+            elif k is Op.PREFETCH_ACT:
+                if _saturated(eng.ioe, bp, "ssd->cpu"):
+                    skip_hint(op)
+                else:
+                    eng.act_c.prefetch(op.l, op.m)
+            elif k is Op.FETCH_ACT:
+                try:
+                    regs[("res", op.m)] = eng.act_c.get(op.l, op.m)
+                except Exception:
+                    # a failed (or skipped) spill or fetch: re-read the
+                    # checkpoint and let BWD recompute the residuals
+                    eng.act_c.drop(op.l, op.m)
+                    eng.act_fallbacks += 1
+                    regs[("x", op.m)] = eng.ckpt_c.get_ckpt_bwd(op.l, op.m)
             elif k is Op.PREFETCH_CKPT:
                 if _saturated(eng.ioe, bp, "ssd->cpu"):
                     skip_hint(op)
@@ -167,9 +213,12 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                     raise NotImplementedError(
                         "per-micro-batch (unfolded) layer gradients belong "
                         "to the data-parallel engine, a later slice")
-                # recompute: re-run the residual-returning forward on the
-                # fetched checkpoint, then backward from its residuals
-                _, res = eng.j_layer_fwd_res(p_dev, regs.pop(("x", op.m)))
+                # both policies run backward from residuals: spill's
+                # fetched ones, or recompute's from the fetched checkpoint
+                res = regs.pop(("res", op.m), None)
+                if res is None:
+                    _, res = eng.j_layer_fwd_res(p_dev,
+                                                 regs.pop(("x", op.m)))
                 dx, dp = eng.j_layer_bwd_res(res, regs.pop(("dy", op.m)))
                 del res
                 gacc = gacc + dp
@@ -271,7 +320,7 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
         regs.clear()
         gacc = p_dev = None
         for fn in (eng.params_c.reset, eng.params_c.clear_gates,
-                   eng.ckpt_c.clear, eng.opt_c.clear):
+                   eng.ckpt_c.clear, eng.act_c.clear, eng.opt_c.clear):
             try:
                 fn()
             except Exception:

@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ScheduleConfig, init_train_state, make_train_step
 from repro_torch.core.perfmodel import StorageRatios
@@ -174,18 +174,23 @@ def test_engine_defaults_to_the_card(monkeypatch):
 
 
 def test_later_slices_raise_naming_them():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="families come with"):
         with tempfile.TemporaryDirectory() as d:
-            OffloadEngine(TINY, OffloadConfig(activation_policy="spill"), 0,
+            OffloadEngine(get_smoke("falcon-mamba-7b"), OffloadConfig(), 0,
                           d, device="cpu")
     with tempfile.TemporaryDirectory() as d:
-        eng = OffloadEngine(TINY, OffloadConfig(micro_batch=1, seq_len=16),
+        eng = OffloadEngine(TINY, OffloadConfig(micro_batch=1, seq_len=16,
+                                                activation_policy="spill"),
                             0, d, device="cpu")
-        for call in (lambda: eng.apply_plan_config(prefetch_depth=2),
-                     lambda: eng.save_checkpoint(d),
-                     lambda: eng.restore_checkpoint(d)):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                call()
+        assert eng.act_policy == "spill"
+        with pytest.raises(NotImplementedError, match="later slice"):
+            eng.apply_plan_config(prefetch_depth=2)
+        from repro_torch.offload.checkpoint import save_checkpoint
+
+        class _DataParallel:          # what the data-parallel engine has
+            ranks = ()
+        with pytest.raises(NotImplementedError, match="data-parallel slice"):
+            save_checkpoint(_DataParallel(), d)
         eng.close()
     with pytest.raises(ValueError, match="param_dtype"):
         OffloadConfig(param_dtype="float16")

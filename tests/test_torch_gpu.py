@@ -32,8 +32,9 @@ def _need_card():
 def _k1_cases(with_q0):
     """Ragged GQA cases (S = 200, 8/2 heads, hd 128) in both dtypes, then
     the shapes of chip_smoke.py's K1 gates (``K1_SHAPES``, or
-    ``K1B_SHAPES`` without q0): GPT-65B and qwen3-4b widths, and the bf16
-    kernels' edges (GQA, window and q0 at hd 64, ragged S = 1000)."""
+    ``K1B_SHAPES`` without q0): GPT-65B and qwen3-4b widths, the bf16
+    kernels' edges (GQA, window and q0 at hd 64, ragged S = 1000), and
+    hd 32 in both dtypes."""
     masks = [(True, None, 0), (False, None, 0),
              (True, 40, 5) if with_q0 else (True, 48, 0)]
     cases = [pytest.param(2, 8, 2, 200, 128, dt, c, w, q0,
@@ -52,6 +53,13 @@ def _k1_cases(with_q0):
          True, 48, 16),
         ("bf16-ragged-1000", 1, 16, 16, 1000, 128, "bfloat16", True, None,
          0),
+        ("qwen3-4b-smoke-f32-hd32", 2, 4, 4, 64, 32, "float32", True, None,
+         0),
+        ("bf16-gqa-hd32-ragged-window-q0", 1, 8, 2, 200, 32, "bfloat16",
+         True, 48, 16),
+        ("f32-gqa-hd32-ragged-window-q0", 1, 8, 2, 200, 32, "float32", True,
+         48, 16),
+        ("bf16-hd32-2048", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
     ]
     if not with_q0:   # the backward's table: no q0, and two GPT-65B rows
         card = [(c[0].replace("-q0", ""),) + c[1:-1] + (0,) for c in card
@@ -213,6 +221,41 @@ def test_offload_engine_alpha_is_bitwise_on_the_card():
     finally:
         torch.use_deterministic_algorithms(False)
     assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+def test_offload_engine_spill_is_bitwise_recompute_on_the_card():
+    """gpt-tiny f32 on the card with deterministic algorithms: spill and
+    recompute give the same losses and final masters, bit for bit; under
+    spill K1's forward runs once per (layer, micro-batch) — nothing is
+    recomputed — and no micro-batch falls back."""
+    _need_card()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_config("gpt-tiny")
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(8, 64) for _ in range(2)]
+    L, M = cfg.num_layers, 4
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for policy, fwd in (("recompute", 2), ("spill", 1)):
+            with tempfile.TemporaryDirectory() as d:
+                eng = OffloadEngine(cfg, OffloadConfig(
+                    num_microbatches=M, micro_batch=2, seq_len=64,
+                    activation_policy=policy,
+                    ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5)), 0, d)
+                c0 = fa.fwd_launches
+                losses = [eng.train_step(b) for b in batches]
+                eng.finish()
+                assert fa.fwd_launches - c0 == fwd * L * M * len(batches)
+                assert eng.act_fallbacks == 0
+                runs[policy] = (losses, torch.cat([
+                    torch.from_numpy(v.read()) for v in eng.m_master]))
+                eng.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs["spill"][0] == runs["recompute"][0]
+    assert torch.equal(runs["spill"][1], runs["recompute"][1])
 
 
 # (B, S, di, st, offset of B in the projection's rows); the first two in

@@ -82,6 +82,7 @@ def test_plain_matches_model_attention_gqa_window_q0(G, window, q0):
 BF16_EDGE_FWD = [
     (4, 1, 200, 64, True, 48, 16),      # GQA 4:1, ragged S, window, q0
     (2, 2, 1000, 128, True, None, 0),   # ragged S = 1000, causal
+    (4, 1, 200, 32, True, 48, 16),      # the same edges at hd 32
 ]
 
 
@@ -236,6 +237,7 @@ def test_autograd_function_matches_reference_vjp(B, Hk, G, S, hd, causal,
 BF16_EDGE_BWD = [
     (1, 4, 200, 64, True, 48),      # GQA 4:1, ragged S, window
     (2, 1, 1000, 128, True, None),  # ragged S = 1000, causal
+    (1, 4, 200, 32, True, 48),      # the same edges at hd 32
 ]
 
 

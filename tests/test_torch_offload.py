@@ -113,9 +113,12 @@ def test_engine_matches_jax_engine(schedule, W, alpha, param_dtype):
 def test_plan_costs_and_snapshot_match_jax_engine():
     """``PlanCosts.from_engine`` field by field (bf16 params) and the
     metrics snapshot's keys against the reference engine's.
-    ``act_res_bytes`` is the vjp-residual payload only the
-    activation-spill policy prices; the port's engine runs
-    ``recompute`` and sizes it 0."""
+    ``act_res_bytes`` is the residual payload only the activation-spill
+    policy prices: the reference's vjp residuals, the port's autograd
+    saved tensors (K1 saves q, k, v, out and lse where the reference's
+    chunked attention keeps its own residuals), so both are sized but
+    not equal; ``tests/test_torch_act.py`` holds the port's against its
+    own ``plan_traffic``."""
     ratios = (0.5, 0.25, 0.75)
     with tempfile.TemporaryDirectory() as d1, \
             tempfile.TemporaryDirectory() as d2:
@@ -133,7 +136,7 @@ def test_plan_costs_and_snapshot_match_jax_engine():
         jsnap, tsnap = je.metrics_snapshot(), te.metrics_snapshot()
         je.close()
         te.close()
-    assert jc.pop("act_res_bytes") > 0 and tc.pop("act_res_bytes") == 0
+    assert jc.pop("act_res_bytes") > 0 and tc.pop("act_res_bytes") > 0
     assert tc == jc
     assert tc["param_itemsize"] == 2
     assert set(tsnap) == set(jsnap) - {"autotune"}
