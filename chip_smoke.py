@@ -52,7 +52,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card: step 2 bitwise the uninterrupted run's. Also measures the
    card's busy time in the training steps (CUDA events around each
    layer, embedding and head call).
-6. mamba — falcon-mamba-7b at full width and depth (64 layers), bf16,
+6. dp — (j) ``DataParallelOffloadEngine`` of ``DP_RANKS`` = 2 simulated
+   ranks on the card (the paper's multi-GPU layout: each rank owns half
+   of every tiered vector, one SSD path, one I/O engine and its host
+   Adam) at the train phase's width, depth, dtype, schedule, M, alpha,
+   ratios, params and tokens, under recompute, 2 steps then
+   ``finish()``. Checks: every rank's meters == its ``plan_traffic`` x
+   steps exactly and ``dp_vertical_traffic``'s closed forms; losses
+   within 1e-4 of the in-memory oracle; K1 forward launches == 2 L M
+   steps, K1 backward == L M steps, K2 == 3 steps; reports the loss gap
+   to the train phase's single-rank run. (k) gpt-tiny f32 with
+   deterministic algorithms: 2 ranks == 1 rank bitwise (losses, final
+   params and masters) at alpha 0 and 0.25; a data-parallel checkpoint
+   after step 1 restored into a fresh 2-rank engine resumes bitwise; a
+   mid-run ``apply_plan_config(prefetch_depth=2,
+   activation_policy="spill")`` and an ``AutotuneController`` (interval
+   2, 6 steps) each leave the trajectory bitwise unchanged.
+7. mamba — falcon-mamba-7b at full width and depth (64 layers), bf16,
    random weights: ``prefill`` of 2 x 2048 tokens (K3 in every layer),
    32 greedy ``decode_step``s, then a fresh prefill over prompt + generated
    tokens. Checks: K3 launches == prefills x 64; the last decode step's
@@ -60,13 +76,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width, 2 layers, f32 on the card against the CPU (prefill logits,
    every layer's h and conv tail, 4 decode steps).
 
-Prints every measurement (``serve stats``, ``train stats`` and ``mamba
-stats`` JSON lines, a ``{"kernels": [...]}`` line with each kernel's
+Prints every measurement (``serve stats``, ``train stats``, ``dp stats``
+and ``mamba stats`` JSON lines, the autotuner's decision log, a ``{"kernels": [...]}`` line with each kernel's
 numbers), the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py                # what a check runs: all phases
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases dp
     python3 chip_smoke.py --phases mamba
 """
 from __future__ import annotations
@@ -106,6 +123,10 @@ SERVE_LAYERS = 2
 # RAM, ~96 GiB) inside the run's limits
 TRAIN_LAYERS = 2
 TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS = 4, 1, 2048, 2
+# the dp phase's simulated data-parallel ranks (the paper's multi-GPU
+# layout, every rank on the one card): each owns half of every tiered
+# vector, one SSD path, one I/O engine and its host Adam stream
+DP_RANKS = 2
 # loss gate against the in-memory oracle, at both steps: the two start
 # from the same bf16 params and apply the same first Adam update (the
 # oracle's f32 head masters and the engine's bf16 head only part from
@@ -703,19 +724,79 @@ def check_train_bytes(eng, cfg, ocfg, steps):
     return errs, measured
 
 
+def check_dp_bytes(eng, cfg, ocfg, steps):
+    """Gate (j)'s bytes: every rank's meters == that rank's
+    ``plan_traffic`` x steps per (category, route), exactly; and ==
+    ``dp_vertical_traffic``'s closed forms on the routes they cover at
+    these ratios (each rank fetches its parameter shard twice a step and
+    receives the rest by all-gather, offloads its f32 gradient shard once
+    and takes (R-1)/R of the f32 buffer each way in the reduce-scatter;
+    its checkpoints are those of its M/R micro-batches), plus the
+    replicated head's ring all-reduce."""
+    from repro_torch.core.plan import PlanCosts, plan_traffic
+    from repro_torch.core.traffic import dp_vertical_traffic
+    preds = plan_traffic(eng.plan, PlanCosts.from_engine(eng))
+    item = eng.dtype.itemsize
+    L, P, M, R = eng.L, eng.P, ocfg.num_microbatches, eng.R
+    u = ocfg.micro_batch * ocfg.seq_len * cfg.d_model * item
+    ms = L * P * item
+    errs = [] if P % R == 0 else [f"P={P} does not split evenly over "
+                                  f"{R} ranks: the closed forms are for "
+                                  f"equal shards"]
+    t = dp_vertical_traffic(ms, L * u, M, R, grad_bytes=L * P * 4,
+                            os_bytes=3 * L * P * 4, n_layers=L)
+    head = 4 * (eng.embed.numel() + eng.unembed.numel()
+                + eng.final_norm.numel())
+    ring = 2 * (R - 1) * head // R
+    closed = {("param", "cpu->gpu"): t.param_fetch,
+              ("param", "net->gpu"): t.param_allgather,
+              ("param", "gpu->net"): t.param_allgather,
+              ("grad", "gpu->cpu"): t.grad_offload,
+              ("grad", "net->gpu"): t.grad_reducescatter,
+              ("grad", "gpu->net"): t.grad_reducescatter,
+              ("ckpt", "gpu->cpu"): t.ckpt.write,
+              ("ckpt", "cpu->gpu"): t.ckpt.read,
+              ("head_grad", "gpu->net"): ring,
+              ("head_grad", "net->gpu"): ring}
+    measured = []
+    for r, (rk, pred) in enumerate(zip(eng.ranks, preds)):
+        got = {k: int(v) for k, v in rk.meter.bytes.items()}
+        measured.append(got)
+        want = {k: steps * int(v) for k, v in pred.items()}
+        errs += [f"rank {r} {c}:{rt}: measured {got.get((c, rt), 0)} != "
+                 f"plan {want.get((c, rt), 0)}"
+                 for (c, rt) in set(got) | set(want)
+                 if got.get((c, rt), 0) != want.get((c, rt), 0)]
+        for key, per_step in closed.items():
+            if got.get(key, 0) != steps * per_step:
+                errs.append(f"rank {r} {key[0]}:{key[1]}: measured "
+                            f"{got.get(key, 0)} != closed form "
+                            f"{steps * per_step}")
+        ig = (got.get(("inter_grad", "gpu->cpu"), 0)
+              + got.get(("inter_grad", "cpu->gpu"), 0))
+        if ig != steps * t.ckpt.inter_grad:
+            errs.append(f"rank {r} inter_grad: measured {ig} != closed "
+                        f"form {steps * t.ckpt.inter_grad}")
+    return errs, measured
+
+
 def train_engine_run(torch, fa, fad, report, cfg, params, batches,
-                     workroot, policy):
-    """One GPT-65B-width ``OffloadEngine`` run on the card under
-    ``activation_policy=policy``: TRAIN_STEPS steps then ``finish()``.
-    Returns (byte-gate failures, the run's numbers). The launch counts
-    are set to 0 after the engine is built (its construction sizes the
-    residual payload with one forward) and read after ``finish()``."""
+                     workroot, policy, ranks=1):
+    """One GPT-65B-width training run on the card under
+    ``activation_policy=policy``: an ``OffloadEngine``, or with ``ranks``
+    > 1 a ``DataParallelOffloadEngine`` of that many simulated ranks (one
+    SSD path each); TRAIN_STEPS steps then ``finish()``. Returns
+    (byte-gate failures, the run's numbers). The launch counts are set to
+    0 after the engine is built (its construction sizes the residual
+    payload with one forward) and read after ``finish()``."""
     import gc
     import threading
 
     from repro_torch.core.perfmodel import StorageRatios
     from repro_torch.io import IOConfig
-    from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
+    from repro_torch.offload import (DataParallelOffloadEngine,
+                                     OffloadConfig, OffloadEngine,
+                                     offload_state)
 
     # the layer / embedding / head work the executor runs on the card.
     # Each call is bracketed by CUDA events; the summed card time between
@@ -727,36 +808,49 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
     # the residual-keeping one under spill
     fwd_fn = "j_layer_fwd" if policy == "recompute" else "j_layer_fwd_res"
     M, MB, S, steps = TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS
+    tag = policy if ranks == 1 else f"{policy}, {ranks} ranks"
     t0 = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix=f"train-{policy}-", dir=workroot)
+    workdir = tempfile.mkdtemp(prefix=f"train-{policy}-r{ranks}-",
+                               dir=workroot)
+    # one SSD path a rank (IOConfig.shard_for_rank hands rank r path r)
+    paths = [workdir] if ranks == 1 else \
+        [os.path.join(workdir, f"path{r}") for r in range(ranks)]
     ocfg = OffloadConfig(schedule="vertical", num_microbatches=M,
                          micro_batch=MB, seq_len=S, alpha=0.25,
                          ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5),
                          param_dtype="bfloat16", prefetch_depth=1,
                          activation_policy=policy,
-                         io=IOConfig(paths=[workdir], chunk_bytes=8 << 20))
+                         io=IOConfig(paths=paths, chunk_bytes=8 << 20))
     eng = None
-    adam_s = [0.0]
+    adam_s = [0.0] * ranks
     lock = threading.Lock()
     try:
-        eng = OffloadEngine(cfg, ocfg, 0, workdir,
-                            params=offload_state(cfg, params))
+        state = offload_state(cfg, params)
+        eng = (OffloadEngine(cfg, ocfg, 0, workdir, params=state)
+               if ranks == 1 else
+               DataParallelOffloadEngine(cfg, ocfg, 0, workdir, ranks=ranks,
+                                         params=state))
+        del state
+        stacks = getattr(eng, "ranks", [eng])
         gc.collect()
         torch.cuda.empty_cache()
         build_s = time.perf_counter() - t0
-        report(f"train engine ({policy}) built in {build_s:.2f} s: {eng.L} "
+        report(f"train engine ({tag}) built in {build_s:.2f} s: {eng.L} "
                f"layers x {eng.P} params, residual payload A = "
-               f"{eng.act_nbytes} B, host {eng.host.nbytes() / 2**30:.2f} "
-               f"GiB, SSD {eng.ssd.nbytes() / 2**30:.2f} GiB")
-        adam = eng.opt_c.adam
-        update = adam.update
+               f"{eng.act_nbytes} B, host "
+               f"{sum(rk.host.nbytes() for rk in stacks) / 2**30:.2f} GiB, "
+               f"SSD {sum(rk.ssd.nbytes() for rk in stacks) / 2**30:.2f} "
+               f"GiB")
 
-        def timed_update(*a, **kw):          # CPU-Adam busy seconds
-            ts = time.perf_counter()
-            update(*a, **kw)
-            with lock:
-                adam_s[0] += time.perf_counter() - ts
-        adam.update = timed_update
+        def timed(update, r):                 # CPU-Adam busy seconds
+            def timed_update(*a, **kw):
+                ts = time.perf_counter()
+                update(*a, **kw)
+                with lock:
+                    adam_s[r] += time.perf_counter() - ts
+            return timed_update
+        for r, rk in enumerate(stacks):
+            rk.opt_c.adam.update = timed(rk.opt_c.adam.update, r)
         spans = []                           # (call, start, end)
         mem_fwd, mem_put = [], []            # memory_allocated readings
 
@@ -774,14 +868,21 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
             return timed
         for name in device_fns:
             setattr(eng, name, on_device(name, getattr(eng, name)))
-        put = eng.act_c.put
 
-        def measured_put(*a, **kw):
-            put(*a, **kw)
-            mem_put.append(torch.cuda.memory_allocated())
-        eng.act_c.put = measured_put
+        def measured(put):
+            def measured_put(*a, **kw):
+                put(*a, **kw)
+                mem_put.append(torch.cuda.memory_allocated())
+            return measured_put
+        for rk in stacks:
+            rk.act_c.put = measured(rk.act_c.put)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # the caching allocator's device allocations and frees (cudaMalloc
+        # / cudaFree synchronise, inside the CUDA-event windows too)
+        alloc_keys = ("num_device_alloc", "num_device_free",
+                      "num_alloc_retries")
+        alloc0 = torch.cuda.memory_stats()
         fa.fwd_launches = fa.bwd_launches = fad.launches = 0  # path starts
         losses, step_s = [], []
         t_run = time.perf_counter()
@@ -801,10 +902,18 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
             device_by_call[name] += a.elapsed_time(b) / 1e3
         device_s = sum(device_by_call.values())
         peak = torch.cuda.max_memory_allocated()
+        alloc1 = torch.cuda.memory_stats()
+        allocator = {k: alloc1.get(k, 0) - alloc0.get(k, 0)
+                     for k in alloc_keys}
         snap = eng.metrics_snapshot()
-        byte_errs, measured = check_train_bytes(eng, cfg, ocfg, steps)
+        if ranks == 1:
+            byte_errs, measured = check_train_bytes(eng, cfg, ocfg, steps)
+            by_rank = [measured]
+        else:
+            byte_errs, by_rank = check_dp_bytes(eng, cfg, ocfg, steps)
+        host_peaks = [rk.host.peak_nbytes for rk in stacks]
         run = {
-            "policy": policy, "act_policy": eng.act_policy,
+            "policy": policy, "ranks": ranks, "act_policy": eng.act_policy,
             "act_nbytes": eng.act_nbytes, "P": eng.P,
             "act_fallbacks": eng.act_fallbacks, "act_skips": eng.act_skips,
             "losses": losses, "build_s": build_s, "step_s": step_s,
@@ -815,22 +924,29 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
             "phase_time": snap["phase_time"],
             "lookahead_hit_rate": snap["lookahead"]["hit_rate"],
             "hint_skips": snap["hint_skips"],
-            "cpu_adam_busy_s": adam_s[0],
-            "cpu_adam_share_of_run": adam_s[0] / run_s,
+            "cpu_adam_busy_s": sum(adam_s),
+            "cpu_adam_busy_s_by_rank": list(adam_s),
+            "cpu_adam_share_of_run": sum(adam_s) / run_s,
             "device_busy_s": device_s,
             "device_busy_share_of_steps": device_s / sum(step_s),
             "device_busy_s_by_call": device_by_call,
-            "host_peak_nbytes": eng.host.peak_nbytes,
+            # per rank, each its own host store's peak; their sum bounds
+            # the ranks' combined peak from above
+            "host_peak_nbytes": sum(host_peaks),
+            "host_peak_nbytes_by_rank": host_peaks,
             "max_memory_allocated": peak,
+            "allocator": allocator,
             "memory_allocated_after_last_fwd": mem_fwd[-1],
             "memory_allocated_after_last_spill":
                 mem_put[-1] if mem_put else None,
-            "act_bytes_per_step": sum(v for (c, _), v in measured.items()
+            "act_bytes_per_step": sum(v for m in by_rank
+                                      for (c, _), v in m.items()
                                       if c == "act") // steps,
             "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
                          "k2": launches[2]},
-            "traffic": {f"{c}:{r}": v
-                        for (c, r), v in sorted(measured.items())},
+            "traffic": [{f"{c}:{r}": v for (c, r), v in sorted(m.items())}
+                        for m in by_rank] if ranks > 1 else
+            {f"{c}:{r}": v for (c, r), v in sorted(measured.items())},
             "ocfg": ocfg,
         }
     finally:
@@ -840,9 +956,38 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    report(f"train ({policy}) losses {losses} in {step_s} s/step (finish "
+    report(f"train ({tag}) losses {losses} in {step_s} s/step (finish "
            f"{finish_s:.2f} s)")
     return byte_errs, run
+
+
+def train_inputs(torch, cfg):
+    """The training runs' initial params (bf16, seed 0, on the card) and
+    token batches (seed 0): the same for the train and dp phases."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(TRAIN_M * TRAIN_MB, TRAIN_S)
+               for _ in range(TRAIN_STEPS)]
+    return mdl.init_params(cfg, 0, dtype=torch.bfloat16), batches
+
+
+def oracle_losses(torch, cfg, params, batches, lr):
+    """The port's in-memory ``make_train_step`` (vertical, M micro-batches)
+    from ``params`` over ``batches``: the per-step losses the offloaded
+    runs are held to."""
+    from repro_torch.core import (ScheduleConfig, init_train_state,
+                                  make_train_step)
+    from repro_torch.optim import AdamConfig
+    step = make_train_step(cfg, ScheduleConfig(schedule="vertical",
+                                               num_microbatches=TRAIN_M),
+                           AdamConfig(lr=lr))
+    _, opt = init_train_state(cfg, params=params)
+    p, out = params, []
+    for b in batches:
+        p, opt, met = step(p, opt, {"tokens": torch.from_numpy(b).cuda()})
+        out.append(float(met["loss"]))
+    return out
 
 
 def phase_train(torch, fa, fad, report, cfg, workroot):
@@ -854,12 +999,7 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
     reports what ``"auto"`` resolves to."""
     import gc
 
-    from repro_torch.core import (ScheduleConfig, init_train_state,
-                                  make_train_step)
-    from repro_torch.data import SyntheticLM
-    from repro_torch.models import model as mdl
     from repro_torch.offload.engine import resolve_activation_policy
-    from repro_torch.optim import AdamConfig
 
     mem = meminfo()
     disk = shutil.disk_usage(workroot)
@@ -868,9 +1008,7 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
            f"{disk.free / 2**30:.1f} GiB at {workroot}")
     M, MB, S, steps = TRAIN_M, TRAIN_MB, TRAIN_S, TRAIN_STEPS
     L = cfg.num_layers
-    data = SyntheticLM(cfg.vocab_size, seed=0)
-    batches = [data.batch(M * MB, S) for _ in range(steps)]
-    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    params, batches = train_inputs(torch, cfg)
     failures = []
     runs = {}
     for policy, fwd_per_mb in (("recompute", 2), ("spill", 1)):
@@ -914,15 +1052,8 @@ def phase_train(torch, fa, fad, report, cfg, workroot):
 
     # (b) the in-memory oracle from the same initial params, for both runs
     t_o = time.perf_counter()
-    step = make_train_step(cfg, ScheduleConfig(schedule="vertical",
-                                               num_microbatches=M),
-                           AdamConfig(lr=rc["ocfg"].lr))
-    _, opt = init_train_state(cfg, params=params)
-    p, oracle = params, []
-    for b in batches:
-        p, opt, met = step(p, opt, {"tokens": torch.from_numpy(b).cuda()})
-        oracle.append(float(met["loss"]))
-    del p, opt, params, met
+    oracle = oracle_losses(torch, cfg, params, batches, rc["ocfg"].lr)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     oracle_s = time.perf_counter() - t_o
@@ -1079,6 +1210,220 @@ def phase_train_tiny(torch, report, workroot):
            f"{ls[1:]} and final masters bitwise: {i_ok} -> "
            f"{'OK' if i_ok else 'FAIL'}")
     return failures
+
+
+def phase_dp(torch, fa, fad, report, cfg, workroot, train=None):
+    """Gate (j): GPT-65B-width training through a
+    ``DataParallelOffloadEngine`` of DP_RANKS simulated ranks on the card,
+    from the train phase's params and tokens, under recompute (the train
+    phase's engines are closed by now, so its host RAM is free). Checks
+    every rank's bytes against its ``plan_traffic`` x steps and the
+    closed forms, the losses against the in-memory oracle (the train
+    phase's when it ran), and the launch counts; reports the loss gap to
+    the train phase's single-rank run. Returns (failures, stats)."""
+    import gc
+
+    M, steps, L = TRAIN_M, TRAIN_STEPS, cfg.num_layers
+    params, batches = train_inputs(torch, cfg)
+    errs, run = train_engine_run(torch, fa, fad, report, cfg, params,
+                                 batches, workroot, "recompute",
+                                 ranks=DP_RANKS)
+    failures = [f"dp: {e}" for e in errs]
+    got = tuple(run["launches"].values())
+    want = (2 * L * M * steps, L * M * steps, 3 * steps)
+    if got != want:
+        failures.append(f"dp: launches (K1 fwd, K1 bwd, K2) {got} != "
+                        f"{want}")
+    report(f"dp bytes (each of {DP_RANKS} ranks: plan x steps, closed "
+           f"forms): {'OK' if not errs else errs}; launches (K1 fwd, K1 "
+           f"bwd, K2) {got}, want {want}")
+    if train:
+        oracle, single = train["oracle_losses"], train["losses"]
+    else:
+        t_o = time.perf_counter()
+        oracle = oracle_losses(torch, cfg, params, batches, run["ocfg"].lr)
+        single = None
+        report(f"in-memory oracle losses {oracle} "
+               f"({time.perf_counter() - t_o:.1f} s)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run.pop("ocfg")
+    losses = run["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, oracle)]
+    loss_fail = [f"dp step {i + 1} loss {losses[i]} vs in-memory oracle "
+                 f"{oracle[i]}: rel {r} > {LOSS_RTOL}"
+                 for i, r in enumerate(rel)
+                 if not (r <= LOSS_RTOL and math.isfinite(losses[i]))]
+    failures += loss_fail
+    gap = None if single is None else \
+        [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    report(f"dp losses {losses} vs in-memory oracle {oracle}: rel diff "
+           f"{rel} (tol {LOSS_RTOL}) -> {'OK' if not loss_fail else 'FAIL'};"
+           f" vs the single-rank run {single}: rel gap {gap}")
+    run.update({"model": cfg.name, "layers": L, "params_per_layer": run["P"],
+                "micro_batches": M, "micro_batch": TRAIN_MB,
+                "seq_len": TRAIN_S, "alpha": 0.25,
+                "ratios": [0.5, 0.5, 0.5, 0.5], "steps": steps,
+                "oracle_losses": oracle, "loss_rel_diff": rel,
+                "single_rank_losses": single,
+                "loss_rel_gap_to_single_rank": gap})
+    return failures, run
+
+
+def phase_dp_tiny(torch, report, workroot):
+    """Gates (k), gpt-tiny in f32 under deterministic algorithms on the
+    card: DP_RANKS ranks == one rank bitwise (losses, final low-precision
+    params and masters) at alpha 0 and 0.25; a data-parallel checkpoint
+    saved after step 1 and restored into a fresh engine of DP_RANKS
+    ranks (another seed) gives the uninterrupted run's later steps
+    bitwise; a mid-run ``apply_plan_config(prefetch_depth=2,
+    activation_policy="spill")`` leaves the trajectory bitwise
+    unchanged; an ``AutotuneController`` (interval 2, 6 steps) left on
+    gives the trajectory of the run with it off, bitwise. Returns
+    (failures, the controller's decision log)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import StorageRatios
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+    from repro_torch.offload import (AutotuneConfig, AutotuneController,
+                                     DataParallelOffloadEngine,
+                                     OffloadConfig, OffloadEngine,
+                                     offload_state)
+
+    cfg = get_config("gpt-tiny")
+    params = mdl.init_params(cfg, 1, dtype=torch.float32, device="cpu")
+    data = SyntheticLM(cfg.vocab_size, seed=1)
+    batches = [data.batch(8, 64) for _ in range(6)]
+    dirs = []
+
+    def engine(ranks, alpha, seed=0, init=True):
+        d = tempfile.mkdtemp(prefix=f"dp-tiny-r{ranks}-", dir=workroot)
+        dirs.append(d)
+        ocfg = OffloadConfig(num_microbatches=4, micro_batch=2, seq_len=64,
+                             alpha=alpha,
+                             ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5))
+        state = offload_state(cfg, params) if init else None
+        if ranks == 1:
+            return OffloadEngine(cfg, ocfg, seed, d, params=state,
+                                 device="cuda")
+        return DataParallelOffloadEngine(cfg, ocfg, seed, d, ranks=ranks,
+                                         params=state, device="cuda")
+
+    def result(eng, losses):
+        eng.finish()
+        stacks = getattr(eng, "ranks", [eng])
+        out = (losses,
+               [np.concatenate([rk.p_vecs[l].read() for rk in stacks])
+                for l in range(eng.L)],
+               [np.concatenate([rk.m_master[l].read() for rk in stacks])
+                for l in range(eng.L)],
+               eng.act_fallbacks)
+        eng.close()
+        return out
+
+    def run(ranks, alpha, n=3, hook=None):
+        """``hook(eng)`` runs once the engine is built and returns the
+        function called after each step (with the step's index)."""
+        eng = engine(ranks, alpha)
+        after = hook(eng) if hook is not None else None
+        losses = []
+        for i, b in enumerate(batches[:n]):
+            losses.append(eng.train_step(b))
+            if after is not None:
+                after(i)
+        return result(eng, losses)
+
+    def same(a, b):
+        return (a[0] == b[0] and a[3] == b[3] == 0
+                and all(bool((x == y).all()) for x, y in zip(a[1], b[1]))
+                and all(bool((x == y).all()) for x, y in zip(a[2], b[2])))
+
+    failures = []
+    log = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        bitwise = {}
+        for alpha in (0.0, 0.25):
+            one = run(1, alpha)
+            dp = run(DP_RANKS, alpha)
+            bitwise[alpha] = (same(one, dp), one[0], dp[0])
+        ref = dp                                  # DP_RANKS, alpha 0.25
+        # checkpoint after step 1, restored into a fresh engine
+        a = engine(DP_RANKS, 0.25)
+        first = [a.train_step(batches[0])]
+        ck = tempfile.mkdtemp(prefix="dp-ckpt-", dir=workroot)
+        dirs.append(ck)
+        t_s = time.perf_counter()
+        a.save_checkpoint(ck)
+        save_s = time.perf_counter() - t_s
+        a.close()
+        b = engine(DP_RANKS, 0.25, seed=99, init=False)
+        restored = b.restore_checkpoint(ck)
+        resumed = result(b, first + [b.train_step(x)
+                                     for x in batches[1:3]])
+        ck_ok = restored == 1 and same(resumed, ref)
+        # the plan hot swap after step 1
+
+        def swap(eng):
+            def after(i):
+                if i == 0:
+                    eng.apply_plan_config(prefetch_depth=2,
+                                          activation_policy="spill")
+            return after
+        swapped = run(DP_RANKS, 0.25, hook=swap)
+        swap_ok = same(swapped, ref)
+        # the autotuner on vs off over 6 steps; its candidates are the
+        # knobs that leave the trajectory bitwise unchanged
+        off = run(DP_RANKS, 0.25, n=6)
+
+        def tune(eng):
+            ctl = AutotuneController(eng, AutotuneConfig(
+                interval=2, hysteresis=0.0, cooldown=0,
+                prefetch_depths=(0, 1, 2),
+                act_policies=("recompute", "spill")))
+            ctls.append(ctl)
+            return lambda i: ctl.post_step()
+        ctls = []
+        on = run(DP_RANKS, 0.25, n=6, hook=tune)
+        log = ctls[0].decisions
+        tune_ok = same(on, off)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    for alpha, (ok, l1, lr) in bitwise.items():
+        if not ok:
+            failures.append(f"gpt-tiny alpha {alpha}: {DP_RANKS} ranks {lr} "
+                            f"!= one rank {l1} (or final params differ)")
+        report(f"(k) gpt-tiny f32 alpha {alpha}: {DP_RANKS} ranks == one "
+               f"rank (losses, params, masters bitwise): {ok} "
+               f"({lr}) -> {'OK' if ok else 'FAIL'}")
+    if not ck_ok:
+        failures.append(f"dp checkpoint resume: restored step {restored}, "
+                        f"losses {resumed[0]} vs uninterrupted {ref[0]}")
+    report(f"(k) dp checkpoint after step 1 (save {save_s:.2f} s) restored "
+           f"into a fresh {DP_RANKS}-rank engine: {resumed[0]} == "
+           f"{ref[0]} with params and masters bitwise: {ck_ok} -> "
+           f"{'OK' if ck_ok else 'FAIL'}")
+    if not swap_ok:
+        failures.append(f"dp plan swap: {swapped[0]} vs unswapped {ref[0]} "
+                        f"(fallbacks {swapped[3]})")
+    report(f"(k) apply_plan_config(prefetch_depth=2, activation_policy="
+           f"'spill') after step 1: {swapped[0]} == unswapped, params and "
+           f"masters bitwise: {swap_ok} -> {'OK' if swap_ok else 'FAIL'}")
+    if not tune_ok:
+        failures.append(f"dp autotune on {on[0]} != off {off[0]}")
+    report(f"(k) autotune on (interval 2, 6 steps) {on[0]} == off "
+           f"{off[0]}, params and masters bitwise: {tune_ok} -> "
+           f"{'OK' if tune_ok else 'FAIL'}")
+    report("autotune decisions: " + json.dumps(
+        [{k: d.get(k) for k in ("window", "step", "action", "reason",
+                                "changes", "route_error", "current",
+                                "best")} for d in log]))
+    return failures, log
 
 
 def sfu_exps_per_s() -> float:
@@ -1452,8 +1797,8 @@ def _kernel_entry(name, source, replaces, launches, rows, headline,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,train,mamba",
-                    help="comma list of: kernels, serve, train, mamba")
+    ap.add_argument("--phases", default="kernels,serve,train,dp,mamba",
+                    help="comma list of: kernels, serve, train, dp, mamba")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1583,7 +1928,42 @@ def main() -> int:
                    + json.dumps(run["op_seconds"]))
         report("train stats: " + json.dumps(tstats))
         wall["train"] = time.perf_counter() - t0
-    # 6. mamba
+    # 6. dp
+    dstats = {}
+    if "dp" in phases:
+        t0 = time.perf_counter()
+        full = get_config("gpt-65b")
+        cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+        report(f"dp model: {full.name} at full width, depth cut "
+               f"{full.num_layers} -> {cfg.num_layers} layers, bf16, "
+               f"{DP_RANKS} simulated data-parallel ranks on the one card "
+               f"(one SSD path, I/O engine and host Adam each), vertical, "
+               f"M {TRAIN_M} x {TRAIN_MB} x {TRAIN_S} tokens, alpha 0.25, "
+               f"ratios 0.5/0.5/0.5, {TRAIN_STEPS} steps, recompute")
+        f, dstats = phase_dp(torch, fa, fad, report, cfg, workroot,
+                             train=tstats or None)
+        failures += f
+        f, dstats["autotune_log"] = phase_dp_tiny(torch, report, workroot)
+        failures += f
+        report(f"dp ({smi}): {dstats['s_per_step']:.2f} s/step, "
+               f"{dstats['tokens_per_s']:.1f} tokens/s, stall "
+               f"{dstats['stall_s']:.2f} s, phase time "
+               f"{json.dumps(dstats['phase_time'])}, CPU Adam busy "
+               f"{dstats['cpu_adam_busy_s']:.2f} s (by rank "
+               f"{[round(x, 2) for x in dstats['cpu_adam_busy_s_by_rank']]}"
+               f", {100 * dstats['cpu_adam_share_of_run']:.1f} % of the run "
+               f"summed), device busy {dstats['device_busy_s']:.3f} s "
+               f"({100 * dstats['device_busy_share_of_steps']:.2f} % of the "
+               f"steps), host peak "
+               f"{dstats['host_peak_nbytes'] / 2**30:.2f} GiB (by rank "
+               f"{[round(x / 2**30, 2) for x in dstats['host_peak_nbytes_by_rank']]}"
+               f" GiB), max_memory_allocated "
+               f"{dstats['max_memory_allocated'] / 2**30:.2f} GiB, loss gap "
+               f"to one rank {dstats['loss_rel_gap_to_single_rank']}")
+        report("dp op seconds: " + json.dumps(dstats["op_seconds"]))
+        report("dp stats: " + json.dumps(dstats))
+        wall["dp"] = time.perf_counter() - t0
+    # 7. mamba
     mstats = {}
     if "mamba" in phases:
         t0 = time.perf_counter()
@@ -1617,10 +1997,13 @@ def main() -> int:
             print(f"FAIL: {msg}", file=sys.stderr)
         return 1
 
-    # the train phase's two runs (recompute, then spill) are its main path
+    # the train phase's two runs (recompute, then spill) and the dp phase's
+    # run are the training main paths
     tr = tstats.get("launches", {})
     ts = tstats.get("spill", {}).get("launches", {})
-    tl = {k: tr.get(k, 0) + ts.get(k, 0) for k in ("k1_fwd", "k1_bwd", "k2")}
+    td = dstats.get("launches", {})
+    tl = {k: tr.get(k, 0) + ts.get(k, 0) + td.get(k, 0)
+          for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
     kernels = [
         _kernel_entry("K1 flash_attention_fwd",
@@ -1630,14 +2013,23 @@ def main() -> int:
                       launches_by_path={
                           "serve": serve_k1,
                           "train_recompute": tr.get("k1_fwd", 0),
-                          "train_spill": ts.get("k1_fwd", 0)}),
+                          "train_spill": ts.get("k1_fwd", 0),
+                          "train_dp": td.get("k1_fwd", 0)}),
         _kernel_entry("K1 flash_attention_bwd",
                       "src/repro_torch/csrc/flash_attention_bwd.cu",
                       "src/repro/models/attention.py:105",
-                      tl["k1_bwd"], brows, K1B_HEADLINE, smi),
+                      tl["k1_bwd"], brows, K1B_HEADLINE, smi,
+                      launches_by_path={
+                          "train_recompute": tr.get("k1_bwd", 0),
+                          "train_spill": ts.get("k1_bwd", 0),
+                          "train_dp": td.get("k1_bwd", 0)}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
-                      tl["k2"], arows, K2_HEADLINE, smi),
+                      tl["k2"], arows, K2_HEADLINE, smi,
+                      launches_by_path={
+                          "train_recompute": tr.get("k2", 0),
+                          "train_spill": ts.get("k2", 0),
+                          "train_dp": td.get("k2", 0)}),
         _kernel_entry("K3 selective_scan_fwd",
                       "src/repro_torch/csrc/selective_scan.cu",
                       "src/repro/kernels/selective_scan.py:27",

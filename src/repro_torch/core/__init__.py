@@ -1,6 +1,7 @@
-"""The byte models, the schedule IR (copies of the reference's
-``core.traffic``, ``core.perfmodel`` and ``core.plan``) and the in-memory
-train-step builders (``core.schedules``)."""
+"""The byte models, the schedule IR, the Algorithm-1 LP configuration
+search (copies of the reference's ``core.traffic``, ``core.perfmodel``,
+``core.plan`` and ``core.lp_search``) and the in-memory train-step
+builders (``core.schedules``)."""
 from repro_torch.core.schedules import (  # noqa: F401
     ScheduleConfig,
     grads_fn,
@@ -23,4 +24,10 @@ from repro_torch.core.perfmodel import (  # noqa: F401
     MachineParams,
     StorageRatios,
     Workload,
+)
+from repro_torch.core.lp_search import (  # noqa: F401
+    LPSolution,
+    SearchResult,
+    find_optimal_config,
+    solve_config,
 )

@@ -1,15 +1,24 @@
 """The engines' versioned metrics snapshots (the reference's
 ``obs.registry``: ``SNAPSHOT_VERSION``, ``_jsonable``, ``build_snapshot``
-for the offload engine and ``build_serve_snapshot`` for the serve
-engine, with the same keys and JSON discipline).
+for the offload engines — single-rank and data-parallel, per-rank lists
+either way — ``build_serve_snapshot`` for the serve engine, with the
+same keys and JSON discipline, and ``traffic_maps``, the join key
+``obs.reconcile`` reads the measured bytes by).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 #: Bump on any breaking change to the snapshot shape.
 SNAPSHOT_VERSION = 1
+
+
+def _rank_stacks(eng) -> list:
+    """Per-rank stacks: the data-parallel engine's ``ranks`` list, or the
+    single-rank engine itself (same attribute surface)."""
+    rks = getattr(eng, "ranks", None)
+    return list(rks) if rks is not None else [eng]
 
 
 def _jsonable(obj):
@@ -30,35 +39,40 @@ def _jsonable(obj):
 
 
 def build_snapshot(eng) -> Dict[str, object]:
-    """The offload engine's flat snapshot, in the reference's schema
-    (per-rank lists, one rank here):
+    """An offload engine's flat snapshot, in the reference's schema
+    (per-rank lists; one entry for the single-rank engine):
 
     * identity — ``version``, ``schedule``, ``ranks``, ``steps``,
       ``act_policy``
-    * bytes — ``traffic`` (``"category:route" -> bytes``)
+    * bytes — ``traffic`` (per rank, ``"category:route" -> bytes``)
     * storage — ``io`` / ``io_depth``, ``host_peak_nbytes`` /
-      ``host_nbytes``, ``bounds`` (``None``: single rank)
+      ``host_nbytes`` (per rank), ``bounds`` (the data-parallel shard
+      ranges; ``None``: single rank)
     * time — ``op_seconds``, ``stall_s``, ``phase_time``
     * lookahead — ``lookahead``, ``hint_skips`` / ``act_skips`` /
       ``act_fallbacks``
     * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
     * spans — ``trace`` (``Tracer.summary()``)
+    * ``autotune`` — the decision log of an attached
+      :class:`repro_torch.offload.autotune.AutotuneController`, when one
+      is attached
     """
     from repro_torch.core.plan import PlanCosts
     from repro_torch.offload.executor import stall_seconds
 
+    rks = _rank_stacks(eng)
     snap = {
         "version": SNAPSHOT_VERSION,
         "schedule": eng.ocfg.schedule,
-        "ranks": 1,
+        "ranks": int(getattr(eng, "R", 1)),
         "steps": int(eng.step_num),
         "act_policy": eng.act_policy,
-        "traffic": [dict(eng.meter.snapshot())],
-        "io": [eng.ioe._collect_stats()],
-        "io_depth": [eng.ioe.depth()],
-        "host_peak_nbytes": [eng.host.peak_nbytes],
-        "host_nbytes": [eng.host.nbytes()],
-        "bounds": None,
+        "traffic": [dict(rk.meter.snapshot()) for rk in rks],
+        "io": [rk.ioe._collect_stats() for rk in rks],
+        "io_depth": [rk.ioe.depth() for rk in rks],
+        "host_peak_nbytes": [rk.host.peak_nbytes for rk in rks],
+        "host_nbytes": [rk.host.nbytes() for rk in rks],
+        "bounds": getattr(eng, "bounds", None),
         "op_seconds": dict(eng.op_seconds),
         "stall_s": stall_seconds(eng.op_seconds),
         "phase_time": dict(eng.phase_time),
@@ -69,6 +83,9 @@ def build_snapshot(eng) -> Dict[str, object]:
         "plan_costs": dataclasses.asdict(PlanCosts.from_engine(eng)),
         "trace": eng.tracer.summary(),
     }
+    log = getattr(eng, "autotune_log", None)
+    if log is not None:
+        snap["autotune"] = list(log)
     return _jsonable(snap)
 
 
@@ -131,3 +148,17 @@ def build_serve_snapshot(eng) -> Dict[str, object]:
         "trace": eng.tracer.summary(),
     }
     return _jsonable(snap)
+
+
+def traffic_maps(snapshot: dict) -> List[Dict[tuple, int]]:
+    """The snapshot's per-rank measured byte counters re-keyed as
+    ``(category, route)`` tuples — the join key ``plan_traffic``
+    predictions use."""
+    out = []
+    for rank_map in snapshot["traffic"]:
+        m: Dict[tuple, int] = {}
+        for key, v in rank_map.items():
+            cat, _, route = key.partition(":")
+            m[(cat, route)] = int(v)
+        out.append(m)
+    return out

@@ -4,9 +4,13 @@ reference's ``offload.checkpoint``, on torch).
 The checkpoint is the engine's full trainable state — per layer the
 low-precision params and the f32 master/m/v optimizer vectors, plus the
 device-resident embedding/head tensors, their Adam state, and
-``step_num``. Vectors are stored assembled (full ``P``-element vectors);
-a bf16 tensor is stored as its ``uint16`` bit patterns, the form the
-host tiers hold it in (``stores.to_host``), and comes back bit for bit.
+``step_num``. Vectors are stored assembled (full ``P``-element vectors,
+not rank shards), so a checkpoint written by the single-rank engine
+restores into the data-parallel engine and back: the data-parallel
+shards are contiguous (``shard_bounds``), so assembly is concatenation
+and restore is slicing, both bitwise. A bf16 tensor is stored as its
+``uint16`` bit patterns, the form the host tiers hold it in
+(``stores.to_host``), and comes back bit for bit.
 
 Crash consistency is manifest-journaled:
 
@@ -28,9 +32,6 @@ Restore quiesces first (``finish()`` and a clear of every coordinator)
 so no in-flight spill or armed α gate can interleave with the state
 writes, then writes through ``TieredVector.write_full`` — unmetered,
 like initialization, so a restore perturbs no traffic accounting.
-
-The data-parallel engine (a later slice) has no checkpoint path yet:
-both entry points raise ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -60,11 +61,20 @@ def _fname(name: str, gen: int) -> str:
     return name.replace(":", "_").replace("/", "_") + f".g{gen}.bin"
 
 
-def _refuse_dp(eng):
+def _stacks(eng):
+    """The engine's rank stacks with their element ranges: the
+    data-parallel engine's ranks and ``bounds``, or the single-rank
+    engine itself over ``[0, P)``."""
     if hasattr(eng, "ranks"):
-        raise NotImplementedError(
-            "checkpoints of the data-parallel engine (offload/dp.py) come "
-            "with the data-parallel slice")
+        return list(zip(eng.ranks, eng.bounds))
+    return [(eng, (0, eng.P))]
+
+
+def _assemble(eng, attr: str, l: int) -> np.ndarray:
+    """Layer ``l``'s full vector from ``attr`` (``p_vecs`` / ``m_master``
+    / ``m_m`` / ``m_v``), concatenating the rank shards."""
+    return np.concatenate([getattr(rk, attr)[l].read()
+                           for rk, _ in _stacks(eng)])
 
 
 _VEC_ATTRS = (("p", "p_vecs"), ("master", "m_master"),
@@ -75,7 +85,7 @@ _HEAD_TENSORS = ("embed", "unembed", "final_norm")
 def _state_items(eng) -> Iterator[Tuple[str, np.ndarray]]:
     for l in range(eng.L):
         for key, attr in _VEC_ATTRS:
-            yield f"{key}:{l}", getattr(eng, attr)[l].read()
+            yield f"{key}:{l}", _assemble(eng, attr, l)
     for t in _HEAD_TENSORS:
         yield t, to_host(getattr(eng, t))
         for k in ("m", "v"):
@@ -100,18 +110,18 @@ def _quiesce(eng):
         eng.finish()
     except Exception:
         pass
-    eng.params_c.reset()
-    eng.params_c.clear_gates()
-    eng.ckpt_c.clear()
-    eng.act_c.clear()
-    eng.opt_c.clear()
+    for rk, _ in _stacks(eng):
+        rk.params_c.reset()
+        rk.params_c.clear_gates()
+        rk.ckpt_c.clear()
+        rk.act_c.clear()
+        rk.opt_c.clear()
 
 
 def save_checkpoint(eng, directory: str) -> str:
     """Write a crash-consistent checkpoint of ``eng`` into ``directory``
     and return the committed manifest path. Non-destructive: training
     can continue on the same engine afterwards."""
-    _refuse_dp(eng)
     eng.finish()            # α tails flushed => vectors are authoritative
     os.makedirs(directory, exist_ok=True)
     gen = int(eng.step_num)
@@ -132,7 +142,7 @@ def save_checkpoint(eng, directory: str) -> str:
            "meta": {"L": int(eng.L), "P": int(eng.P), "step_num": gen,
                     "param_dtype": eng.ocfg.param_dtype,
                     "arch": getattr(eng.cfg, "name", ""),
-                    "ranks": 1},
+                    "ranks": int(getattr(eng, "R", 1))},
            "tensors": tensors}
     target = os.path.join(directory, MANIFEST)
     tmp = target + ".tmp"
@@ -182,7 +192,6 @@ def restore_checkpoint(eng, directory: str) -> int:
     the restored ``step_num``. All tensor bytes are read and
     CRC-verified before any engine state is touched; the restored
     trajectory is bitwise (f32)."""
-    _refuse_dp(eng)
     doc = load_manifest(directory)
     meta = doc["meta"]
     for key, have in (("L", int(eng.L)), ("P", int(eng.P)),
@@ -226,7 +235,9 @@ def restore_checkpoint(eng, directory: str) -> int:
     _quiesce(eng)
     for l in range(eng.L):
         for key, attr in _VEC_ATTRS:
-            getattr(eng, attr)[l].write_full(arrays[f"{key}:{l}"])
+            arr = arrays[f"{key}:{l}"]
+            for rk, (lo, hi) in _stacks(eng):
+                getattr(rk, attr)[l].write_full(arr[lo:hi])
 
     def dev(name, like):
         return to_device(arrays[name], like.dtype, tuple(like.shape),

@@ -31,8 +31,11 @@ run backward from the tensors autograd saved in a layer forward
 checkpoint at backward time, ``"spill"`` streams the saved tensors out
 after the forward and back before the backward, and ``"auto"`` picks one
 with the perf model. Crash-consistent checkpoints are
-:mod:`repro_torch.offload.checkpoint`; the plan hot swap comes with a
-later slice and raises ``NotImplementedError``.
+:mod:`repro_torch.offload.checkpoint`; ``apply_plan_config`` swaps the
+compiled plan between steps (the seam the autotuner,
+:mod:`repro_torch.offload.autotune`, retunes through), and
+:mod:`repro_torch.offload.dp` runs the same executor over R simulated
+data-parallel ranks.
 
 Device tensors cross to the host only on the executor's thread; the I/O
 engine's workers touch numpy arrays alone.
@@ -52,6 +55,7 @@ from repro_torch.core.perfmodel import MachineParams, StorageRatios
 from repro_torch.core.plan import (PlanSpec, compile_wave, insert_prefetch,
                                    mb_order)
 from repro_torch.io import IOConfig, IOEngine
+from repro_torch.io.config import PATH_POLICIES
 from repro_torch.kernels.fused_adam import fused_adam
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
@@ -70,8 +74,9 @@ from repro_torch.optim.cpu_adam import CpuAdam
 __all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
            "bind_block_fns", "mb_order", "split_microbatches",
            "shifted_labels", "engine_workload", "lookahead_stats",
-           "offload_state", "act_residual_nbytes",
-           "resolve_activation_policy"]
+           "reset_lookahead_stats", "offload_state", "act_residual_nbytes",
+           "resolve_activation_policy", "build_training_state",
+           "swap_plan"]
 
 
 @dataclasses.dataclass
@@ -359,6 +364,172 @@ def lookahead_stats(eng, coordinators) -> Dict[str, object]:
             "op_seconds": dict(eng.op_seconds)}
 
 
+def reset_lookahead_stats(eng, coordinators) -> None:
+    """Zero every measured-iteration meter — stall and phase timers,
+    adaptive-skip and fallback counters, lookahead hit/miss counts — so a
+    second measured iteration after a reset reports like the first
+    (traffic meters have their own ``reset``; the I/O engines' stats are
+    lifetime counters)."""
+    eng.op_seconds.clear()
+    eng.hint_skips = eng.act_skips = eng.act_fallbacks = 0
+    for k in eng.phase_time:
+        eng.phase_time[k] = 0.0
+    for c in coordinators:
+        c.la_hits = c.la_misses = 0
+
+
+def build_training_state(eng, seed, params, stacks_for) -> None:
+    """Build an offload engine's trainable state, coordinators and plan;
+    shared by the single-rank and the data-parallel engine.
+
+    Per layer, the flat parameter vector — ``params["layers"][l]``, or a
+    seeded ``block_init`` (one generator for all layers, then the
+    embedding and LM head, so a seed gives the same model to every
+    engine) — is cast to the engine's dtype and written, with its f32
+    master and zero moments, into the tiered vectors of each stack that
+    ``stacks_for(P)`` returns as ``(stack, (lo, hi))``: the engine itself
+    over ``[0, P)``, or each data-parallel rank over its shard. A stack
+    carries ``host``, ``ssd``, ``meter`` and ``ioe`` and receives
+    ``p_vecs`` / ``m_master`` / ``m_m`` / ``m_v`` and the four
+    coordinators. The embedding, LM head and final norm stay on the
+    engine's device with their Adam moments."""
+    cfg, ocfg = eng.cfg, eng.ocfg
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(int(seed))
+    x = ocfg.ratios
+    hdt = host_dtype(eng.dtype)
+    stacks = tmpl = None
+    for l in range(eng.L):
+        if params is None or tmpl is None:
+            lp = blk.block_init(gen, cfg, eng.kind, dtype=eng.dtype,
+                                device=eng.device)
+            leaves, treedef = tree.flatten(lp)
+            tmpl = (treedef, [tuple(t.shape) for t in leaves])
+        flat = (_flat(lp) if params is None
+                else params["layers"][l].reshape(-1))
+        lp = leaves = None
+        flat = flat.to(eng.dtype)
+        if l == 0:
+            eng.P = flat.numel()
+            stacks = stacks_for(eng.P)
+            for st, _ in stacks:
+                st.p_vecs, st.m_master, st.m_m, st.m_v = [], [], [], []
+        elif flat.numel() != eng.P:
+            raise ValueError(f"layer {l} has {flat.numel()} parameters, "
+                             f"layer 0 {eng.P}")
+        lowp = to_host(flat)
+        master = flat.float().cpu().numpy()
+        del flat
+        for st, (lo, hi) in stacks:
+            n = hi - lo
+            pv = TieredVector(f"param:{l}", n, hdt, x.param, st.host,
+                              st.ssd, "param")
+            pv.write_full(lowp[lo:hi])
+            st.p_vecs.append(pv)
+            zeros = np.zeros(n, np.float32)
+            for name, lst, init in (("master", st.m_master, master[lo:hi]),
+                                    ("m", st.m_m, zeros),
+                                    ("v", st.m_v, zeros)):
+                tv = TieredVector(f"{name}:{l}", n, np.float32, x.opt,
+                                  st.host, st.ssd, "opt")
+                tv.write_full(init)
+                lst.append(tv)
+            del zeros
+        del lowp, master
+    eng._unflatten = _make_unflatten(*tmpl)
+
+    # ---- embedding / head resident on the device (+ K2 Adam) ----
+    if params is None:
+        eng.embed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                               eng.dtype, device=eng.device)
+        eng.unembed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                 eng.dtype, device=eng.device).T.contiguous()
+        eng.final_norm = init_rms_scale(cfg.d_model, device=eng.device)
+    else:
+        def dev(name, dt):
+            return params[name].to(device=eng.device, dtype=dt).contiguous()
+        eng.embed = dev("embed", eng.dtype)
+        eng.unembed = dev("unembed", eng.dtype)
+        eng.final_norm = dev("final_norm", torch.float32)
+    eng.head_state = {
+        t: {"m": torch.zeros(getattr(eng, t).numel(), dtype=torch.float32,
+                             device=eng.device),
+            "v": torch.zeros(getattr(eng, t).numel(), dtype=torch.float32,
+                             device=eng.device)}
+        for t in ("embed", "unembed", "final_norm")}
+
+    # ---- coordinators: each stack's submit through its own IOEngine ----
+    for st, _ in stacks:
+        st.params_c = ParameterCoordinator(st.p_vecs, st.meter, st.ioe,
+                                           eng.dtype, device=eng.device)
+        st.ckpt_c = InterLayerTensorCoordinator(
+            x.ckpt, st.host, st.ssd, st.meter, st.ioe, device=eng.device)
+        st.opt_c = OptimizerStepCoordinator(
+            st.m_master, st.m_m, st.m_v, st.p_vecs, st.host, st.meter,
+            st.ioe, CpuAdam(lr=ocfg.lr), ocfg.alpha, param_dtype=eng.dtype)
+        st.act_c = ActivationCoordinator(x.act, st.host, st.ssd, st.meter,
+                                         st.ioe, device=eng.device)
+    for c in eng._coordinators():
+        c.tracer = eng.tracer
+
+    bind_block_fns(eng, build_block_fns(cfg, eng.kind, eng._unflatten))
+    # size the activation stream exactly (one (layer, mb) residual
+    # payload) and resolve the recompute / spill / auto knob
+    eng.act_nbytes = act_residual_nbytes(
+        eng.j_layer_fwd_res, eng.P, eng.dtype, ocfg.micro_batch,
+        ocfg.seq_len, cfg.d_model, eng.device)
+    for st, _ in stacks:
+        st.act_c.nbytes = eng.act_nbytes
+    eng.act_policy = resolve_activation_policy(
+        ocfg, cfg, eng.P, eng.dtype.itemsize, eng.act_nbytes)
+    eng.act_fallbacks = 0       # micro-batches degraded to recompute
+    eng.op_seconds = defaultdict(float)
+    eng.hint_skips = 0          # hints skipped under backpressure
+    eng.act_skips = 0           # "auto" spills skipped per (l, m)
+    eng.backpressure = ocfg.backpressure
+    eng.act_adaptive = (ocfg.activation_policy == "auto"
+                        and eng.act_policy == "spill")
+    eng._plan = eng._compile_plan()
+
+
+def swap_plan(eng, changes, prefetch_depth=None, activation_policy=None,
+              path_policy=None):
+    """Both engines' ``apply_plan_config`` (see
+    :meth:`OffloadEngine.apply_plan_config`): validate the knobs on a
+    throwaway config copy, quiesce (``finish()``), set every stack's
+    path policy, drop each stack's per-plan residue, commit the knobs,
+    re-resolve the activation policy and recompile. ``changes`` holds
+    the engine's own config changes (the single-rank engine's wave)."""
+    changes = dict(changes)
+    if prefetch_depth is not None:
+        changes["prefetch_depth"] = int(prefetch_depth)
+    if activation_policy is not None:
+        changes["activation_policy"] = str(activation_policy)
+    # the copy's __post_init__ rejects a bad depth or policy
+    trial = dataclasses.replace(eng.ocfg, **changes)
+    trial.resolved_wave_size()              # raises on a bad W
+    if path_policy is not None and path_policy not in PATH_POLICIES:
+        raise ValueError(
+            f"path_policy {path_policy!r} not in {PATH_POLICIES}")
+    eng.finish()
+    for st in getattr(eng, "ranks", [eng]):
+        if path_policy is not None:
+            st.ioe.set_path_policy(path_policy)
+        st.params_c.reset()
+        st.params_c.clear_gates()
+        st.ckpt_c.clear()
+        st.act_c.clear()
+    for k, v in changes.items():
+        setattr(eng.ocfg, k, v)
+    if activation_policy is not None:
+        eng.act_policy = resolve_activation_policy(
+            eng.ocfg, eng.cfg, eng.P, eng.dtype.itemsize, eng.act_nbytes)
+        eng.act_adaptive = (eng.ocfg.activation_policy == "auto"
+                            and eng.act_policy == "spill")
+    eng._plan = eng._compile_plan()
+    return eng._plan
+
+
 def split_microbatches(tokens: np.ndarray, M: int, micro_batch: int
                        ) -> np.ndarray:
     if tokens.shape[0] != M * micro_batch:
@@ -421,105 +592,8 @@ class OffloadEngine:
         self.phase_time: Dict[str, float] = {"fwd": 0.0, "bwd": 0.0,
                                              "opt_wait": 0.0}
 
-        # ---- per-layer params straight into tiered storage ----
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        x = ocfg.ratios
-        hdt = host_dtype(self.dtype)
-        self.p_vecs: List[TieredVector] = []
-        self.m_master: List[TieredVector] = []
-        self.m_m: List[TieredVector] = []
-        self.m_v: List[TieredVector] = []
-        tmpl = None
-        for l in range(self.L):
-            if params is None or tmpl is None:
-                lp = blk.block_init(gen, cfg, self.kind, dtype=self.dtype,
-                                    device=self.device)
-                leaves, treedef = tree.flatten(lp)
-                tmpl = (treedef, [tuple(t.shape) for t in leaves])
-            flat = (_flat(lp) if params is None
-                    else params["layers"][l].reshape(-1))
-            lp = leaves = None
-            flat = flat.to(self.dtype)
-            if l == 0:
-                self.P = flat.numel()
-            elif flat.numel() != self.P:
-                raise ValueError(f"layer {l} has {flat.numel()} parameters, "
-                                 f"layer 0 {self.P}")
-            pv = TieredVector(f"param:{l}", self.P, hdt, x.param, self.host,
-                              self.ssd, "param")
-            pv.write_full(to_host(flat))
-            self.p_vecs.append(pv)
-            master = flat.float().cpu().numpy()
-            del flat
-            zeros = np.zeros(self.P, np.float32)
-            for name, lst, init in (("master", self.m_master, master),
-                                    ("m", self.m_m, zeros),
-                                    ("v", self.m_v, zeros)):
-                tv = TieredVector(f"{name}:{l}", self.P, np.float32, x.opt,
-                                  self.host, self.ssd, "opt")
-                tv.write_full(init)
-                lst.append(tv)
-            del master, zeros
-        self._unflatten = _make_unflatten(*tmpl)
-
-        # ---- embedding / head resident on the device (+ K2 Adam) ----
-        if params is None:
-            self.embed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                    self.dtype, device=self.device)
-            self.unembed = embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                      self.dtype,
-                                      device=self.device).T.contiguous()
-            self.final_norm = init_rms_scale(cfg.d_model, device=self.device)
-        else:
-            def dev(name, dt):
-                return params[name].to(
-                    device=self.device, dtype=dt).contiguous()
-            self.embed = dev("embed", self.dtype)
-            self.unembed = dev("unembed", self.dtype)
-            self.final_norm = dev("final_norm", torch.float32)
-        self.head_state = {
-            t: {"m": torch.zeros(getattr(self, t).numel(),
-                                 dtype=torch.float32, device=self.device),
-                "v": torch.zeros(getattr(self, t).numel(),
-                                 dtype=torch.float32, device=self.device)}
-            for t in ("embed", "unembed", "final_norm")}
-
-        # ---- coordinators (all submit through the shared IOEngine) ----
-        self.params_c = ParameterCoordinator(self.p_vecs, self.meter,
-                                             self.ioe, self.dtype,
-                                             device=self.device)
-        self.ckpt_c = InterLayerTensorCoordinator(
-            x.ckpt, self.host, self.ssd, self.meter, self.ioe,
-            device=self.device)
-        self.opt_c = OptimizerStepCoordinator(
-            self.m_master, self.m_m, self.m_v, self.p_vecs, self.host,
-            self.meter, self.ioe, CpuAdam(lr=ocfg.lr), ocfg.alpha,
-            param_dtype=self.dtype)
-        self.act_c = ActivationCoordinator(x.act, self.host, self.ssd,
-                                           self.meter, self.ioe,
-                                           device=self.device)
-        for c in self._coordinators():
-            c.tracer = self.tracer
-
-        bind_block_fns(self, build_block_fns(cfg, self.kind,
-                                             self._unflatten))
-        # size the activation stream exactly (one (layer, mb) residual
-        # payload) and resolve the recompute / spill / auto knob
-        self.act_nbytes = act_residual_nbytes(
-            self.j_layer_fwd_res, self.P, self.dtype, ocfg.micro_batch,
-            ocfg.seq_len, cfg.d_model, self.device)
-        self.act_c.nbytes = self.act_nbytes
-        self.act_policy = resolve_activation_policy(
-            ocfg, cfg, self.P, self.dtype.itemsize, self.act_nbytes)
-        self.act_fallbacks = 0      # micro-batches degraded to recompute
-        self.op_seconds: Dict[str, float] = defaultdict(float)
-        self.hint_skips = 0         # hints skipped under backpressure
-        self.act_skips = 0          # "auto" spills skipped per (l, m)
-        self.backpressure = ocfg.backpressure
-        self.act_adaptive = (ocfg.activation_policy == "auto"
-                             and self.act_policy == "spill")
-        self._plan = self._compile_plan()
+        build_training_state(self, seed, params,
+                             lambda P: [(self, (0, P))])
 
     # ------------------------------------------------------------------
     def _mb_order(self, l: int) -> List[int]:
@@ -564,10 +638,33 @@ class OffloadEngine:
         self.ckpt_c.wait_pending()
         self.act_c.wait_pending()
 
-    def apply_plan_config(self, *args, **kwargs):
-        raise NotImplementedError(
-            "apply_plan_config (the autotuner's plan hot swap) is ported "
-            "with a later slice")
+    def apply_plan_config(self, wave_size: Optional[int] = None,
+                          prefetch_depth: Optional[int] = None,
+                          activation_policy: Optional[str] = None,
+                          path_policy: Optional[str] = None):
+        """Swap the compiled plan between steps — the autotuner's retune
+        seam. Changes any subset of the knobs (``wave_size`` retargets
+        the schedule to the wave hybrid with that W; ``prefetch_depth``;
+        ``activation_policy``; ``path_policy`` sets the I/O engine's
+        chunk->path placement) and recompiles; the next ``train_step``
+        interprets the new plan.
+
+        The seam leaks no per-plan state: the α tails are flushed and
+        waited (``finish()``, the same flush a prologue plan would apply
+        at the next step's start), outstanding parameter prefetches are
+        cancelled and the armed α gates dropped, and the checkpoint and
+        activation coordinators' device-kept slots, pending spills and
+        hints are cleared. Knobs are validated on a throwaway config copy
+        before anything changes, so a bad value raises ``ValueError``
+        and the engine keeps its current plan. ``prefetch_depth``,
+        ``activation_policy`` and ``path_policy`` swaps are bitwise
+        trajectory-neutral; a ``wave_size`` swap equals an engine
+        compiled with the new plan from the same checkpointed state."""
+        changes = {}
+        if wave_size is not None:
+            changes.update(schedule="wave", wave_size=int(wave_size))
+        return swap_plan(self, changes, prefetch_depth, activation_policy,
+                         path_policy)
 
     def save_checkpoint(self, directory: str) -> str:
         """Crash-consistent checkpoint of the full trainable state
@@ -598,12 +695,7 @@ class OffloadEngine:
     def reset_stats(self):
         """Zero every measured-iteration meter (warm-up boundary; the
         traffic meter has its own ``reset``)."""
-        self.op_seconds.clear()
-        self.hint_skips = self.act_skips = self.act_fallbacks = 0
-        for k in self.phase_time:
-            self.phase_time[k] = 0.0
-        for c in self._coordinators():
-            c.la_hits = c.la_misses = 0
+        reset_lookahead_stats(self, self._coordinators())
 
     @property
     def plan(self):

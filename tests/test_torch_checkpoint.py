@@ -1,11 +1,12 @@
 """The port's crash-consistent checkpoints (``repro_torch.offload.
-checkpoint``) on the CPU: twins of ``tests/test_checkpoint.py`` without
-the data-parallel case.
+checkpoint``) on the CPU: twins of ``tests/test_checkpoint.py``.
 
 * **Bitwise resume** — save mid-training, restore into a fresh engine
   built from another seed: the continued loss trajectory equals the
   uninterrupted run's bitwise, and saving leaves the original engine
-  training on the same trajectory;
+  training on the same trajectory; across rank counts too (a
+  data-parallel checkpoint into a data-parallel engine, a single-rank
+  one into a data-parallel engine and back);
 * **Crash consistency** — a torn/missing/wrong-version manifest, a torn
   or corrupt tensor file, or meta that does not match the engine raise
   :class:`CheckpointError` before any engine state is touched;
@@ -25,8 +26,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.perfmodel import StorageRatios
 from repro_torch.data import SyntheticLM
-from repro_torch.offload import (CheckpointError, OffloadConfig,
-                                 OffloadEngine, load_manifest)
+from repro_torch.offload import (CheckpointError, DataParallelOffloadEngine,
+                                 OffloadConfig, OffloadEngine, load_manifest)
 
 CFG = ArchConfig(name="ckpt-tiny", family="dense", source="test",
                  num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
@@ -45,12 +46,15 @@ def _one_intra_op_thread():
     torch.set_num_threads(n)
 
 
-def _mk(d, seed=0, cfg=CFG, param_dtype="float32"):
+def _mk(d, seed=0, cfg=CFG, param_dtype="float32", ranks=1):
     oc = OffloadConfig(schedule="vertical", num_microbatches=M,
                        micro_batch=MB, seq_len=S,
                        ratios=StorageRatios(0.5, 0.5, 0.5),
                        alpha=0.5, activation_policy="spill",
                        param_dtype=param_dtype)
+    if ranks > 1:
+        return DataParallelOffloadEngine(cfg, oc, seed, d, ranks=ranks,
+                                         device="cpu")
     return OffloadEngine(cfg, oc, seed, d, device="cpu")
 
 
@@ -62,9 +66,15 @@ def _params(eng):
     return [eng.p_vecs[l].read().copy() for l in range(eng.L)]
 
 
+def _vec(eng, attr, l):
+    """Layer l's full vector, assembled from the rank shards."""
+    stacks = getattr(eng, "ranks", [eng])
+    return np.concatenate([getattr(rk, attr)[l].read() for rk in stacks])
+
+
 def _state(eng):
     """Every tensor a checkpoint holds, as host arrays."""
-    out = {f"{k}:{l}": getattr(eng, a)[l].read().copy()
+    out = {f"{k}:{l}": _vec(eng, a, l)
            for k, a in (("p", "p_vecs"), ("master", "m_master"),
                         ("m", "m_m"), ("v", "m_v")) for l in range(eng.L)}
     for t in ("embed", "unembed", "final_norm"):
@@ -95,6 +105,37 @@ def test_save_restore_resumes_bitwise(param_dtype):
         got = _steps(b, 2, SyntheticLM(CFG.vocab_size, seed=1))
         assert got == ref, "resumed trajectory diverged"
         b.finish()
+        b.close()
+
+
+@pytest.mark.parametrize("src,dst", [(2, 2), (1, 2), (2, 1)])
+def test_resume_across_rank_counts_is_bitwise(src, dst):
+    """The assembled format restores into any rank count: a checkpoint
+    from an engine of ``src`` ranks, restored into a fresh ``dst``-rank
+    engine (another seed), continues bitwise on the uninterrupted
+    trajectory (R ranks == 1 rank in f32)."""
+    data = SyntheticLM(CFG.vocab_size, seed=0)
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2, \
+            tempfile.TemporaryDirectory() as ck:
+        a = _mk(d1, seed=0, ranks=src)
+        _steps(a, 2, data)
+        a.save_checkpoint(ck)
+        assert load_manifest(ck)["meta"]["ranks"] == src
+        saved = _state(a)
+        ref = _steps(a, 2, SyntheticLM(CFG.vocab_size, seed=1))
+        a.finish()
+        final = _state(a)
+        a.close()
+        b = _mk(d2, seed=99, ranks=dst)
+        assert b.restore_checkpoint(ck) == 2 and b.step_num == 2
+        for name, arr in _state(b).items():
+            np.testing.assert_array_equal(arr, saved[name], err_msg=name)
+        got = _steps(b, 2, SyntheticLM(CFG.vocab_size, seed=1))
+        assert got == ref, "resumed trajectory diverged"
+        b.finish()
+        for name, arr in _state(b).items():
+            np.testing.assert_array_equal(arr, final[name], err_msg=name)
         b.close()
 
 

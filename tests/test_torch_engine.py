@@ -18,7 +18,8 @@ from repro_torch.core.perfmodel import StorageRatios
 from repro_torch.data import SyntheticLM
 from repro_torch.io import install_chaos
 from repro_torch.models import model as mdl
-from repro_torch.offload import OffloadConfig, OffloadEngine, offload_state
+from repro_torch.offload import (DataParallelOffloadEngine, OffloadConfig,
+                                 OffloadEngine, offload_state)
 from repro_torch.optim import AdamConfig
 
 CFG = get_config("gpt-tiny")
@@ -183,15 +184,15 @@ def test_later_slices_raise_naming_them():
                                                 activation_policy="spill"),
                             0, d, device="cpu")
         assert eng.act_policy == "spill"
-        with pytest.raises(NotImplementedError, match="later slice"):
-            eng.apply_plan_config(prefetch_depth=2)
-        from repro_torch.offload.checkpoint import save_checkpoint
-
-        class _DataParallel:          # what the data-parallel engine has
-            ranks = ()
-        with pytest.raises(NotImplementedError, match="data-parallel slice"):
-            save_checkpoint(_DataParallel(), d)
+        # the plan hot swap and the data-parallel engine have landed; what
+        # they still refuse is what the reference refuses
+        eng.apply_plan_config(prefetch_depth=2)
+        assert eng.ocfg.prefetch_depth == 2
         eng.close()
+        with pytest.raises(ValueError, match="vertical"):
+            DataParallelOffloadEngine(
+                TINY, OffloadConfig(schedule="horizontal"), 0, d,
+                device="cpu")
     with pytest.raises(ValueError, match="param_dtype"):
         OffloadConfig(param_dtype="float16")
     with pytest.raises(NotImplementedError, match="slice"):

@@ -19,7 +19,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_adam as fad
 from repro_torch.kernels import selective_scan as k3
 from repro_torch.models import model as mdl
-from repro_torch.offload import OffloadConfig, OffloadEngine
+from repro_torch.core.plan import PlanCosts, plan_traffic
+from repro_torch.offload import (AutotuneConfig, AutotuneController,
+                                 DataParallelOffloadEngine, OffloadConfig,
+                                 OffloadEngine)
 from repro_torch.serve import ServeConfig, ServeEngine
 
 
@@ -256,6 +259,121 @@ def test_offload_engine_spill_is_bitwise_recompute_on_the_card():
         torch.use_deterministic_algorithms(False)
     assert runs["spill"][0] == runs["recompute"][0]
     assert torch.equal(runs["spill"][1], runs["recompute"][1])
+
+
+def _dp_tiny(ranks, d, alpha=0.25, dtype="float32", seed=0):
+    ocfg = OffloadConfig(num_microbatches=4, micro_batch=2, seq_len=64,
+                         alpha=alpha, param_dtype=dtype,
+                         ratios=StorageRatios(0.5, 0.5, 0.5, act=0.5))
+    cfg = get_config("gpt-tiny")
+    if ranks == 1:
+        return OffloadEngine(cfg, ocfg, seed, d)
+    return DataParallelOffloadEngine(cfg, ocfg, seed, d, ranks=ranks)
+
+
+def _dp_state(eng):
+    """Final low-precision params and masters, assembled over the ranks."""
+    stacks = getattr(eng, "ranks", [eng])
+    return [torch.cat([torch.from_numpy(getattr(rk, a)[l].read())
+                       for rk in stacks])
+            for a in ("p_vecs", "m_master") for l in range(eng.L)]
+
+
+@pytest.mark.gpu
+def test_dp_engine_bytes_launches_and_losses_on_the_card():
+    """chip_smoke.py's gate (j) at gpt-tiny width, bf16: 2 simulated
+    ranks on the card, 2 steps; every rank's meters equal its
+    ``plan_traffic`` x steps, the kernels launch on the path (K1 forward
+    2 L M a step, backward L M, K2 3), and the losses are within 1e-4 of
+    the single-rank engine's."""
+    _need_card()
+    cfg = get_config("gpt-tiny")
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(8, 64) for _ in range(2)]
+    L, M = cfg.num_layers, 4
+    runs = {}
+    for ranks in (1, 2):
+        with tempfile.TemporaryDirectory() as d:
+            eng = _dp_tiny(ranks, d, dtype="bfloat16")
+            c0 = (fa.fwd_launches, fa.bwd_launches, fad.launches)
+            runs[ranks] = [eng.train_step(b) for b in batches]
+            eng.finish()
+            c1 = (fa.fwd_launches, fa.bwd_launches, fad.launches)
+            assert [b - a for a, b in zip(c0, c1)] == [2 * L * M * 2,
+                                                       L * M * 2, 3 * 2]
+            if ranks > 1:
+                pred = plan_traffic(eng.plan, PlanCosts.from_engine(eng))
+                assert [dict(rk.meter.bytes) for rk in eng.ranks] == \
+                    [{k: 2 * v for k, v in p.items()} for p in pred]
+            eng.close()
+    for a, b in zip(runs[2], runs[1]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+
+
+@pytest.mark.gpu
+def test_dp_engine_is_bitwise_one_rank_on_the_card():
+    """chip_smoke.py's gate (k), gpt-tiny f32 with deterministic
+    algorithms: 2 ranks == 1 rank (losses, final params and masters) at
+    α 0 and 0.25; a data-parallel checkpoint after step 1 resumes
+    bitwise in a fresh engine; a mid-run plan swap and an autotuner left
+    on leave the trajectory bitwise unchanged."""
+    _need_card()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_config("gpt-tiny")
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(8, 64) for _ in range(4)]
+
+    def run(ranks, alpha, hook=None):
+        with tempfile.TemporaryDirectory() as d:
+            eng = _dp_tiny(ranks, d, alpha)
+            after = hook(eng) if hook is not None else None
+            losses = []
+            for i, b in enumerate(batches):
+                losses.append(eng.train_step(b))
+                if after is not None:
+                    after(i)
+            eng.finish()
+            assert eng.act_fallbacks == 0
+            out = (losses, _dp_state(eng))
+            eng.close()
+        return out
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y)
+                                    for x, y in zip(a[1], b[1]))
+
+    def swap(eng):
+        return lambda i: i == 0 and eng.apply_plan_config(
+            prefetch_depth=2, activation_policy="spill")
+
+    def tune(eng):
+        ctl = AutotuneController(eng, AutotuneConfig(
+            interval=2, hysteresis=0.0, cooldown=0,
+            prefetch_depths=(0, 1, 2), act_policies=("recompute", "spill")))
+        return lambda i: ctl.post_step()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for alpha in (0.0, 0.25):
+            ref = run(2, alpha)
+            assert same(run(1, alpha), ref), alpha
+        assert same(run(2, 0.25, swap), ref)
+        assert same(run(2, 0.25, tune), ref)
+        with tempfile.TemporaryDirectory() as d1, \
+                tempfile.TemporaryDirectory() as d2, \
+                tempfile.TemporaryDirectory() as ck:
+            a = _dp_tiny(2, d1)
+            first = [a.train_step(batches[0])]
+            a.save_checkpoint(ck)
+            a.close()
+            b = _dp_tiny(2, d2, seed=99)
+            assert b.restore_checkpoint(ck) == 1
+            losses = first + [b.train_step(x) for x in batches[1:]]
+            b.finish()
+            assert same((losses, _dp_state(b)), ref)
+            b.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 # (B, S, di, st, offset of B in the projection's rows); the first two in
