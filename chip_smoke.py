@@ -76,15 +76,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width, 2 layers, f32 on the card against the CPU (prefill logits,
    every layer's h and conv tail, 4 decode steps).
 
-Prints every measurement (``serve stats``, ``train stats``, ``dp stats``
-and ``mamba stats`` JSON lines, the autotuner's decision log, a ``{"kernels": [...]}`` line with each kernel's
-numbers), the ``nvidia-smi`` name/power-limit line, and last
-``{"ok": true, "device": {...}}``.
+8. entry — the port's entry points through their own ``main(argv)``:
+   (l) the training CLI (``repro_torch.launch.train``) in memory at
+   GPT-100M full width and depth, ``ENTRY_STEPS`` steps of 16 x 256
+   tokens, M 4, alpha 0.25: K1 forward launches == 2 L steps and
+   backward == L steps (every layer runs under checkpoint), the mean of
+   the last five losses below the first, s/step, tokens/s and
+   ``max_memory_allocated``; (m) the CLI under ``--offload`` at
+   GPT-100M, 3 steps at its defaults (f32 params, 4 x 2 x 128 tokens,
+   alpha 0, ratios 0.5 / 0.5 / 0): bytes == plan_traffic x steps and the
+   closed forms, losses within ``LOSS_RTOL`` of the in-memory oracle from
+   the same seed-0 params and batches, K1 and K2 launches; (n) the
+   gpt-tiny ``Trainer`` from f32 params on the card against the CPU
+   (losses within ``TRAINER_LOSS_RTOL``: from its first update it trains
+   bf16 params); (o) its checkpoint resume bitwise under
+   deterministic algorithms; (p) the kernel benchmark
+   (``repro_torch.bench.kernels``), every row within its tolerance; (q)
+   the six examples (``repro_torch.examples``), each passing its own
+   check.
+
+Prints every measurement (``serve stats``, ``train stats``, ``dp stats``,
+``mamba stats`` and ``entry stats`` JSON lines, the autotuner's decision
+log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
+``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py                # what a check runs: all phases
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases dp
     python3 chip_smoke.py --phases mamba
+    python3 chip_smoke.py --phases entry
 """
 from __future__ import annotations
 
@@ -134,6 +155,16 @@ DP_RANKS = 2
 # skipped layer update or a lost alpha tail moves the step-2 loss by
 # far more (PERF.md, Findings)
 LOSS_RTOL = 1e-4
+# the entry phase: the training CLI's in-memory run at GPT-100M (gate
+# (l)); train_gpt100m runs at its default 200 steps in gate (q): at 20
+# its own check (the loss falls by 1.0) failed on the card (10.7800 ->
+# 10.7554), GPT-100M barely moves on the synthetic stream that early
+ENTRY_STEPS = 30
+# gate (n): the Trainer casts its params to bf16 at every update (alpha
+# > 0: from the first step's flush), so the card and the CPU differ as
+# bf16 products do; the engine tests' bf16 tolerance (measured on the
+# card: 6.5e-5)
+TRAINER_LOSS_RTOL = 2e-4
 # (name, B, Hq, Hk, S, hd, dtype, causal, window, q0)
 K1_SHAPES = [
     ("gpt-65b prefill S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None, 0),
@@ -159,6 +190,8 @@ K1_SHAPES = [
     ("f32 gqa hd32 ragged window q0", 1, 8, 2, 200, 32, "float32", True, 48,
      16),
     ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
+    # GPT-100M's training shape (the entry phase: 16 x 256 tokens)
+    ("gpt-100m train S=256", 16, 12, 12, 256, 64, "bfloat16", True, None, 0),
 ]
 HEADLINE = "gpt-65b prefill S=2048"
 
@@ -176,6 +209,7 @@ K1B_SHAPES = [
     ("bf16 gqa hd32 ragged window", 1, 8, 2, 200, 32, "bfloat16", True, 48),
     ("f32 gqa hd32 ragged window", 1, 8, 2, 200, 32, "float32", True, 48),
     ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None),
+    ("gpt-100m train S=256", 16, 12, 12, 256, 64, "bfloat16", True, None),
 ]
 K1B_HEADLINE = "gpt-65b train S=2048"
 
@@ -973,20 +1007,23 @@ def train_inputs(torch, cfg):
 
 
 def oracle_losses(torch, cfg, params, batches, lr):
-    """The port's in-memory ``make_train_step`` (vertical, M micro-batches)
-    from ``params`` over ``batches``: the per-step losses the offloaded
-    runs are held to."""
-    from repro_torch.core import (ScheduleConfig, init_train_state,
-                                  make_train_step)
-    from repro_torch.optim import AdamConfig
-    step = make_train_step(cfg, ScheduleConfig(schedule="vertical",
-                                               num_microbatches=TRAIN_M),
-                           AdamConfig(lr=lr))
+    """The port's in-memory vertical train step (``make_train_step``'s
+    gradients and Adam update) from ``params`` over ``batches``: the
+    per-step losses the offloaded runs are held to. The updated params
+    are cast to the embedding's dtype: bf16 (as ``make_train_step``) for
+    the bf16 runs, f32 for an f32 engine, which keeps its params f32."""
+    from repro_torch.core import ScheduleConfig, grads_fn, init_train_state
+    from repro_torch.optim import AdamConfig, apply_update
+    gfn = grads_fn(cfg, ScheduleConfig(schedule="vertical",
+                                       num_microbatches=TRAIN_M))
+    dtype = params["embed"].dtype
     _, opt = init_train_state(cfg, params=params)
     p, out = params, []
     for b in batches:
-        p, opt, met = step(p, opt, {"tokens": torch.from_numpy(b).cuda()})
-        out.append(float(met["loss"]))
+        loss, grads = gfn(p, {"tokens": torch.from_numpy(b).cuda()})
+        p, opt = apply_update(opt, grads, AdamConfig(lr=lr),
+                              compute_dtype=dtype)
+        out.append(float(loss))
     return out
 
 
@@ -1782,6 +1819,273 @@ def phase_mamba(torch, k3, report):
     return failures, stats
 
 
+def trainer_tiny_gates(torch, report, workroot):
+    """Gates (n) and (o), gpt-tiny (seed 1 f32 params), vertical, M 4,
+    alpha 0.25, 8 x 64 tokens a step: (n) 4 ``Trainer`` steps on the card
+    against the same on the CPU (the kernels' plain versions): losses
+    within ``TRAINER_LOSS_RTOL``, and the final f32 masters' largest
+    difference reported; (o) under deterministic algorithms, 4 steps on
+    the card against 2 steps, ``train.checkpoint.save``, ``restore``
+    into a fresh Trainer (its data stream advanced past the batches
+    drawn), 2 more: losses and every param and optimizer leaf bitwise.
+    Returns (failures, numbers)."""
+    from repro_torch import deterministic, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import ScheduleConfig
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import Trainer, checkpoint
+
+    cfg = get_config("gpt-tiny")
+    base = mdl.init_params(cfg, 1, dtype=torch.float32, device="cpu")
+    B, S = 8, 64
+
+    def trainer(device):
+        return Trainer(cfg, ScheduleConfig(num_microbatches=4, alpha=0.25),
+                       AdamConfig(lr=1e-3), params=tree.tree_map(
+                           lambda t: t.clone(), base), device=device)
+
+    failures = []
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = trainer(dev)
+        losses = tr.run(4, B, S, log_every=0).losses
+        runs[dev] = (losses, torch.cat([t.reshape(-1).cpu() for t in
+                                        tree.leaves(tr.state.adam.master)]))
+    (lc, mc), (lp, mp) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    master_err = (mc - mp).abs().max().item()
+    n_ok = loss_rel <= TRAINER_LOSS_RTOL and all(map(math.isfinite, lc))
+    if not n_ok:
+        failures.append(f"(n) Trainer card {lc} vs CPU {lp}: loss rel "
+                        f"{loss_rel} > {TRAINER_LOSS_RTOL}")
+    report(f"(n) gpt-tiny Trainer from f32 params (vertical, M 4, alpha "
+           f"0.25: bf16 params from the first step's flush on) card {lc} "
+           f"vs CPU {lp}: loss rel {loss_rel:.3e} (tol "
+           f"{TRAINER_LOSS_RTOL}), final f32 masters max abs diff "
+           f"{master_err:.3e} (reported) -> {'OK' if n_ok else 'FAIL'}")
+
+    ck = tempfile.mkdtemp(prefix="trainer-ckpt-", dir=workroot)
+    try:
+        with deterministic():
+            whole = trainer("cuda")
+            lw = whole.run(4, B, S, log_every=0).losses
+            a = trainer("cuda")
+            la = a.run(2, B, S, log_every=0).losses
+            t_s = time.perf_counter()
+            checkpoint.save(ck, a.params, a.state, step=a.step_num)
+            save_s = time.perf_counter() - t_s
+            b = trainer("cuda")
+            b.params, b.state, b.step_num = checkpoint.restore(
+                ck, a.params, a.state)
+            for _ in range(b.step_num):
+                b.data.batch(B, S)
+            lb = b.run(2, B, S, log_every=0).losses
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    leaves_equal = all(
+        torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+        for x, y in zip(tree.leaves((b.params, b.state)),
+                        tree.leaves((whole.params, whole.state))))
+    o_ok = la + lb == lw and leaves_equal
+    if not o_ok:
+        failures.append(f"(o) Trainer resume {la + lb} vs uninterrupted "
+                        f"{lw}, every leaf equal {leaves_equal}")
+    report(f"(o) gpt-tiny f32 Trainer checkpoint after step 2 (save "
+           f"{save_s:.2f} s) restored into a fresh Trainer: losses {la + lb}"
+           f" == uninterrupted {lw}, every param and optimizer leaf "
+           f"bitwise {leaves_equal} -> {'OK' if o_ok else 'FAIL'}")
+    return failures, {"card_losses": lc, "cpu_losses": lp,
+                      "loss_rel": loss_rel, "master_max_abs": master_err,
+                      "resumed_losses": la + lb, "uninterrupted_losses": lw,
+                      "resume_bitwise": o_ok}
+
+
+def phase_entry(torch, fa, fad, report, workroot):
+    """The port's entry points through their ``main(argv)``: (l) the
+    training CLI in memory at GPT-100M full width and depth, 30 steps of
+    16 x 256 tokens, M 4, alpha 0.25 (train_gpt100m.py's shape): the loss
+    falls and K1's launches are those the code implies; (m) the CLI
+    under ``--offload`` at GPT-100M, 3 steps at its defaults: bytes ==
+    plan_traffic x steps and the closed forms, losses against the
+    in-memory oracle from the same seed-0 f32 params and batches, K1 and
+    K2 launches; (n), (o) the gpt-tiny Trainer gates; (p) the kernel
+    benchmark, every row within its tolerance; (q) the six examples
+    (lp_config_search is host-only arithmetic) each returning with its
+    own check passed. Returns (failures, stats)."""
+    import gc
+
+    from repro_torch.bench import kernels as bench_kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.examples import (lp_config_search, offload_ssd_demo,
+                                      quickstart, serve_batched, train_dp,
+                                      train_gpt100m)
+    from repro_torch.launch import train as cli
+    from repro_torch.models import model as mdl
+
+    failures, stats = [], {}
+    cfg = get_config("gpt-100m")
+    L = cfg.num_layers
+
+    # (l) the CLI in memory
+    steps, B, S = ENTRY_STEPS, 16, 256
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = fad.launches = 0   # path starts
+    t0 = time.perf_counter()
+    out = cli.main(["--arch", "gpt-100m", "--steps", str(steps), "--batch",
+                    str(B), "--seq", str(S), "--microbatches", "4",
+                    "--alpha", "0.25"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fa.fwd_launches, fa.bwd_launches, fad.launches)  # ends
+    # loss_fn runs every layer under torch.utils.checkpoint: a layer's
+    # forward runs twice a step (once more to recompute for backward)
+    want = (2 * L * steps, L * steps, 0)
+    losses = out["losses"]
+    falls = sum(losses[-5:]) / 5 < losses[0]
+    l_ok = launches == want and falls and all(map(math.isfinite, losses))
+    if not l_ok:
+        failures.append(f"(l) CLI in memory: launches (K1 fwd, K1 bwd, K2) "
+                        f"{launches} != {want} or the loss did not fall: "
+                        f"{losses}")
+    cli_stats = {
+        "model": cfg.name, "layers": L, "steps": steps, "batch": B,
+        "seq_len": S, "micro_batches": 4, "alpha": 0.25, "losses": losses,
+        "s_per_step": 1.0 / out["steps_per_s"],
+        "tokens_per_s": out["tokens_per_s"], "wall_s": wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
+                     "k2": launches[2]}}
+    report(f"(l) CLI in memory, {cfg.name} full width and depth "
+           f"({L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+           f"{cfg.head_dim}), {steps} steps of {B} x {S} tokens, M 4, alpha "
+           f"0.25: {cli_stats['s_per_step']:.4f} s/step, "
+           f"{out['tokens_per_s']:.0f} tokens/s (steps 2..{steps}), "
+           f"max_memory_allocated "
+           f"{cli_stats['max_memory_allocated'] / 2**30:.2f} GiB, loss "
+           f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last five "
+           f"below the first: {falls}); launches (K1 fwd, K1 bwd, K2) "
+           f"{launches}, want {want} -> {'OK' if l_ok else 'FAIL'}")
+    stats["cli"] = cli_stats
+
+    # (m) the CLI under --offload, at its defaults
+    steps = 3
+    workdir = tempfile.mkdtemp(prefix="entry-offload-", dir=workroot)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = fad.launches = 0   # path starts
+    try:
+        t0 = time.perf_counter()
+        out = cli.main(["--arch", "gpt-100m", "--steps", str(steps),
+                        "--offload", "--ssd-dir", workdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (fa.fwd_launches, fa.bwd_launches, fad.launches)  # ends
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    eng = out["engine"]
+    ocfg = eng.ocfg
+    M = ocfg.num_microbatches
+    byte_errs, _ = check_train_bytes(eng, cfg, ocfg, steps)
+    failures += [f"(m) {e}" for e in byte_errs]
+    # the engine's construction runs one layer forward to size the
+    # activation payload (offload/engine.py, act_residual_nbytes); then
+    # every step runs each (layer, micro-batch) forward twice
+    want = (2 * L * M * steps + 1, L * M * steps, 3 * steps)
+    if launches != want:
+        failures.append(f"(m) launches (K1 fwd, K1 bwd, K2) {launches} != "
+                        f"{want}")
+    params = mdl.init_params(cfg, 0, dtype=torch.float32)
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [data.batch(M * ocfg.micro_batch, ocfg.seq_len)
+               for _ in range(steps)]
+    oracle = oracle_losses(torch, cfg, params, batches, ocfg.lr)
+    del params
+    losses = out["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, oracle)]
+    m_loss_ok = all(r <= LOSS_RTOL for r in rel) and all(
+        map(math.isfinite, losses))
+    if not m_loss_ok:
+        failures.append(f"(m) losses {losses} vs oracle {oracle}: rel {rel}")
+    m_ok = not byte_errs and m_loss_ok and launches == want
+    off_stats = {
+        "model": cfg.name, "steps": steps, "schedule": ocfg.schedule,
+        "micro_batches": M, "micro_batch": ocfg.micro_batch,
+        "seq_len": ocfg.seq_len, "alpha": ocfg.alpha,
+        "param_dtype": ocfg.param_dtype,
+        "ratios": [ocfg.ratios.ckpt, ocfg.ratios.param, ocfg.ratios.opt],
+        "losses": losses, "oracle_losses": oracle, "loss_rel_diff": rel,
+        "s_per_step": out["seconds"] / steps,
+        "tokens_per_s": out["tokens_per_s"], "wall_s": wall,
+        "max_memory_allocated": peak, "phase_time": out["phase_time"],
+        "traffic": out["traffic"],
+        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1],
+                     "k2": launches[2]}}
+    report(f"(m) CLI --offload, {cfg.name}, {steps} steps of "
+           f"{M} x {ocfg.micro_batch} x {ocfg.seq_len} tokens, "
+           f"{ocfg.schedule}, alpha {ocfg.alpha}, {ocfg.param_dtype} "
+           f"params: {off_stats['s_per_step']:.3f} s/step, "
+           f"{out['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+           f"{peak / 2**30:.2f} GiB; bytes (plan x steps, closed forms): "
+           f"{'OK' if not byte_errs else byte_errs}; losses {losses} vs "
+           f"in-memory oracle {oracle}: rel {rel} (tol {LOSS_RTOL}); "
+           f"launches (K1 fwd, K1 bwd, K2) {launches}, want {want} -> "
+           f"{'OK' if m_ok else 'FAIL'}")
+    stats["cli_offload"] = off_stats
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (n), (o)
+    f, stats["trainer_tiny"] = trainer_tiny_gates(torch, report, workroot)
+    failures += f
+
+    # (p) the kernel benchmark
+    rows = bench_kernels.main([])
+    bad = [name for name, r in rows.items() if not r["ok"]]
+    if bad:
+        failures.append(f"(p) kernel benchmark rows out of tolerance: {bad}")
+    report(f"(p) kernel benchmark: {len(rows)} rows, "
+           f"{'all within tolerance' if not bad else bad}")
+    stats["bench_kernels"] = rows
+
+    # (q) the examples, each through its own main and its own checks
+    examples = [
+        ("train_gpt100m", train_gpt100m.main,
+         ["--ckpt-dir", os.path.join(workroot, "gpt100m-ckpt")]),
+        ("offload_ssd_demo", offload_ssd_demo.main, []),
+        ("train_dp", train_dp.main, ["--verify-single-rank"]),
+        ("lp_config_search", lp_config_search.main, []),
+        ("serve_batched", serve_batched.main, ["--check"]),
+        ("quickstart", quickstart.main,
+         ["--wave", "2", "--activation-policy", "spill"]),
+    ]
+    stats["examples"] = {}
+    for name, main, argv in examples:
+        t0 = time.perf_counter()
+        try:
+            res = main(argv)
+            ok, why = True, ""
+        except SystemExit as e:        # an example's own check failed
+            res, ok, why = None, False, str(e)
+        secs = time.perf_counter() - t0
+        if name == "train_gpt100m" and ok:
+            shutil.rmtree(res["checkpoint"], ignore_errors=True)
+            ok = res["restored_equal"]
+            why = "" if ok else "restored params differ"
+        if not ok:
+            failures.append(f"(q) example {name} failed its check: {why}")
+        report(f"(q) example {name} {' '.join(argv)}: {secs:.1f} s -> "
+               f"{'OK' if ok else 'FAIL ' + why}")
+        stats["examples"][name] = {"seconds": secs, "ok": ok}
+    return failures, stats
+
+
 def _kernel_entry(name, source, replaces, launches, rows, headline,
                   smi, **extra):
     head = next((r for r in rows if r["shape"] == headline), None)
@@ -1797,8 +2101,9 @@ def _kernel_entry(name, source, replaces, launches, rows, headline,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,train,dp,mamba",
-                    help="comma list of: kernels, serve, train, dp, mamba")
+    ap.add_argument("--phases", default="kernels,serve,train,dp,mamba,entry",
+                    help="comma list of: kernels, serve, train, dp, mamba, "
+                         "entry")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1990,6 +2295,26 @@ def main() -> int:
                f"{mstats['max_memory_allocated'] / 2**30:.2f} GiB")
         report("mamba stats: " + json.dumps(mstats))
         wall["mamba"] = time.perf_counter() - t0
+    # 8. entry
+    estats = {}
+    if "entry" in phases:
+        t0 = time.perf_counter()
+        f, estats = phase_entry(torch, fa, fad, report, workroot)
+        failures += f
+        report(f"entry ({smi}): CLI in memory "
+               f"{estats['cli']['s_per_step']:.4f} s/step, "
+               f"{estats['cli']['tokens_per_s']:.0f} tokens/s, "
+               f"max_memory_allocated "
+               f"{estats['cli']['max_memory_allocated'] / 2**30:.2f} GiB; "
+               f"CLI --offload {estats['cli_offload']['s_per_step']:.3f} "
+               f"s/step, {estats['cli_offload']['tokens_per_s']:.0f} "
+               f"tokens/s, max_memory_allocated "
+               f"{estats['cli_offload']['max_memory_allocated'] / 2**30:.2f}"
+               f" GiB; examples "
+               + json.dumps({k: round(v["seconds"], 1)
+                             for k, v in estats["examples"].items()}))
+        report("entry stats: " + json.dumps(estats))
+        wall["entry"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
@@ -1997,12 +2322,14 @@ def main() -> int:
             print(f"FAIL: {msg}", file=sys.stderr)
         return 1
 
-    # the train phase's two runs (recompute, then spill) and the dp phase's
-    # run are the training main paths
+    # the train phase's two runs (recompute, then spill), the dp phase's
+    # run and the entry phase's two CLI runs are the training main paths
     tr = tstats.get("launches", {})
     ts = tstats.get("spill", {}).get("launches", {})
     td = dstats.get("launches", {})
-    tl = {k: tr.get(k, 0) + ts.get(k, 0) + td.get(k, 0)
+    te = estats.get("cli", {}).get("launches", {})
+    to = estats.get("cli_offload", {}).get("launches", {})
+    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to))
           for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
     kernels = [
@@ -2014,7 +2341,9 @@ def main() -> int:
                           "serve": serve_k1,
                           "train_recompute": tr.get("k1_fwd", 0),
                           "train_spill": ts.get("k1_fwd", 0),
-                          "train_dp": td.get("k1_fwd", 0)}),
+                          "train_dp": td.get("k1_fwd", 0),
+                          "entry_cli": te.get("k1_fwd", 0),
+                          "entry_cli_offload": to.get("k1_fwd", 0)}),
         _kernel_entry("K1 flash_attention_bwd",
                       "src/repro_torch/csrc/flash_attention_bwd.cu",
                       "src/repro/models/attention.py:105",
@@ -2022,14 +2351,18 @@ def main() -> int:
                       launches_by_path={
                           "train_recompute": tr.get("k1_bwd", 0),
                           "train_spill": ts.get("k1_bwd", 0),
-                          "train_dp": td.get("k1_bwd", 0)}),
+                          "train_dp": td.get("k1_bwd", 0),
+                          "entry_cli": te.get("k1_bwd", 0),
+                          "entry_cli_offload": to.get("k1_bwd", 0)}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl["k2"], arows, K2_HEADLINE, smi,
                       launches_by_path={
                           "train_recompute": tr.get("k2", 0),
                           "train_spill": ts.get("k2", 0),
-                          "train_dp": td.get("k2", 0)}),
+                          "train_dp": td.get("k2", 0),
+                          "entry_cli": te.get("k2", 0),
+                          "entry_cli_offload": to.get("k2", 0)}),
         _kernel_entry("K3 selective_scan_fwd",
                       "src/repro_torch/csrc/selective_scan.cu",
                       "src/repro/kernels/selective_scan.py:27",

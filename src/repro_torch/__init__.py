@@ -17,16 +17,37 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 """
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` by default (raises
-    when there is no card), or whatever the caller names."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """The device an entry point runs on: ``cuda`` by default, or whatever
+    the caller names; a CUDA device raises when there is no card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """Deterministic algorithms inside the block when ``on``: a
+    bit-for-bit comparison of two runs on the card needs them (the
+    embedding's backward accumulates with atomics otherwise). cuBLAS
+    reads its workspace setting at its first call, so a process that
+    compares runs enters this block before its first product."""
+    if not on:
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)

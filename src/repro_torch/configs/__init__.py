@@ -22,10 +22,21 @@ _MODULES = {
 }
 
 
+def _entry(name: str):
+    try:
+        return _MODULES[name]
+    except KeyError:
+        raise KeyError(
+            f"{name!r} is not an architecture of the port (it has "
+            f"{sorted(_MODULES)}); the other architectures of the "
+            "reference come with later slices (ROADMAP.md, section 1, "
+            "item 5)") from None
+
+
 def get_config(name: str) -> ArchConfig:
-    mod, attr = _MODULES[name]
+    mod, attr = _entry(name)
     return getattr(importlib.import_module(mod), attr)
 
 
 def get_smoke(name: str) -> ArchConfig:
-    return importlib.import_module(_MODULES[name][0]).SMOKE
+    return importlib.import_module(_entry(name)[0]).SMOKE

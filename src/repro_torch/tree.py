@@ -59,3 +59,28 @@ def tree_map(fn: Callable, tree, *rest):
     ls, treedef = flatten(tree)
     others = [leaves(r) for r in rest]
     return unflatten(treedef, [fn(*xs) for xs in zip(ls, *others)])
+
+
+def flatten_with_path(tree) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` pairs in :func:`leaves` order, each key the leaf's
+    path joined with ``/`` as the reference's ``train.checkpoint`` writes
+    it from JAX key paths: a dict key bare, a sequence index as its
+    number, a NamedTuple field with a leading dot (``.master/embed``,
+    ``.adam/.step``)."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + [str(k)])
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for name, x in zip(t._fields, t):
+                walk(x, path + ["." + name])
+        elif isinstance(t, (tuple, list)):
+            for i, x in enumerate(t):
+                walk(x, path + [str(i)])
+        elif t is not None:
+            out.append(("/".join(path), t))
+
+    walk(tree, [])
+    return out

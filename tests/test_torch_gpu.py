@@ -7,11 +7,12 @@ PyTorch and the CUDA toolkit are installed:
 import os
 import tempfile
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import tree
+from repro_torch import deterministic, tree
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.perfmodel import StorageRatios
 from repro_torch.data import SyntheticLM
@@ -24,6 +25,9 @@ from repro_torch.offload import (AutotuneConfig, AutotuneController,
                                  DataParallelOffloadEngine, OffloadConfig,
                                  OffloadEngine)
 from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.core import ScheduleConfig
+from repro_torch.optim import AdamConfig
+from repro_torch.train import Trainer, checkpoint
 
 
 def _need_card():
@@ -63,6 +67,8 @@ def _k1_cases(with_q0):
         ("f32-gqa-hd32-ragged-window-q0", 1, 8, 2, 200, 32, "float32", True,
          48, 16),
         ("bf16-hd32-2048", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
+        ("gpt-100m-train-256", 16, 12, 12, 256, 64, "bfloat16", True, None,
+         0),
     ]
     if not with_q0:   # the backward's table: no q0, and two GPT-65B rows
         card = [(c[0].replace("-q0", ""),) + c[1:-1] + (0,) for c in card
@@ -459,3 +465,65 @@ def test_mamba_prefill_and_decode_on_the_card_match_the_cpu():
         tok = torch.argmax(lc, dim=-1)[:, None]
         lc, cc = mdl.decode_step(params, cfg, tok, 40 + i, cc)
         lg, cg = mdl.decode_step(pg, cfg, tok.cuda(), 40 + i, cg)
+
+
+def _tiny_trainer(device, base):
+    """gpt-tiny, vertical, M 4, alpha 0.25, from a copy of ``base``."""
+    return Trainer(get_config("gpt-tiny"),
+                   ScheduleConfig(num_microbatches=4, alpha=0.25),
+                   AdamConfig(lr=1e-3),
+                   params=tree.tree_map(lambda t: t.clone(), base),
+                   device=device)
+
+
+@pytest.mark.gpu
+def test_trainer_on_the_card_matches_the_cpu():
+    """chip_smoke.py's gate (n): the gpt-tiny ``Trainer`` from f32 params,
+    4 steps of 8 x 64 tokens on the card against the same on the CPU
+    (the kernels' plain versions): losses within 2e-4 relative, the bf16
+    tolerance, because under alpha 0.25 the Trainer runs bf16 params from
+    the first step's flush on (measured: 6.5e-5); K1 forward runs twice
+    per layer a step (the layer is recomputed for backward), its backward
+    once."""
+    _need_card()
+    base = mdl.init_params(get_config("gpt-tiny"), 1, dtype=torch.float32,
+                           device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = _tiny_trainer(dev, base)
+        c0 = (fa.fwd_launches, fa.bwd_launches)
+        losses = tr.run(4, 8, 64, log_every=0).losses
+        c1 = (fa.fwd_launches, fa.bwd_launches)
+        out[dev] = losses
+        if dev == "cuda":
+            L = get_config("gpt-tiny").num_layers
+            assert [b - a for a, b in zip(c0, c1)] == [2 * L * 4, L * 4]
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_trainer_checkpoint_resume_is_bitwise_on_the_card():
+    """chip_smoke.py's gate (o): under deterministic algorithms, 4 steps
+    of the gpt-tiny ``Trainer`` against 2 steps, ``checkpoint.save``,
+    ``restore`` into a fresh Trainer (its data stream advanced past the
+    2 batches drawn) and 2 more steps: losses and every param and
+    optimizer leaf bitwise."""
+    _need_card()
+    base = mdl.init_params(get_config("gpt-tiny"), 1, dtype=torch.float32,
+                           device="cpu")
+    with deterministic(), tempfile.TemporaryDirectory() as d:
+        whole = _tiny_trainer("cuda", base)
+        lw = whole.run(4, 8, 64, log_every=0).losses
+        a = _tiny_trainer("cuda", base)
+        la = a.run(2, 8, 64, log_every=0).losses
+        checkpoint.save(d, a.params, a.state, step=a.step_num)
+        b = _tiny_trainer("cuda", base)
+        b.params, b.state, b.step_num = checkpoint.restore(d, a.params,
+                                                           a.state)
+        for _ in range(b.step_num):
+            b.data.batch(8, 64)
+        lb = b.run(2, 8, 64, log_every=0).losses
+    assert la + lb == lw
+    for x, y in zip(tree.leaves((b.params, b.state)),
+                    tree.leaves((whole.params, whole.state))):
+        assert torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y

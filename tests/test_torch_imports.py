@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
 loads neither ``jax``, nor anything of the JAX package ``repro``, nor
-``ml_dtypes`` (a dependency of JAX, absent where the card is), and no
-source of the port (or ``chip_smoke.py``) imports them."""
+``ml_dtypes`` (a dependency of JAX, absent where the card is), nor the
+reference's ``benchmarks`` scripts, and no source of the port (or
+``chip_smoke.py``) imports them."""
 import os
 import re
 import subprocess
@@ -22,17 +23,31 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "repro", "ml_dtypes"))
+             if n.split(".")[0] in ("jax", "repro", "ml_dtypes", "benchmarks"))
 print(",".join(names), bad)
 """
 
 #: modules the walk must reach: the training side's last slice (the LP
 #: search, reconciliation, the autotuner and the data-parallel engine)
-#: beside the engines they join
+#: beside the engines they join, and the front door (micro-batching, the
+#: in-memory Trainer and its checkpoints, the training CLI, the kernel
+#: benchmark and the six examples), whose scripts parse their arguments
+#: only inside ``main``
 REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.obs.registry", "repro_torch.offload.autotune",
             "repro_torch.offload.dp", "repro_torch.offload.engine",
-            "repro_torch.offload.executor", "repro_torch.offload.checkpoint"}
+            "repro_torch.offload.executor", "repro_torch.offload.checkpoint",
+            "repro_torch.data.microbatch", "repro_torch.train",
+            "repro_torch.train.loop", "repro_torch.train.checkpoint",
+            "repro_torch.launch", "repro_torch.launch.train",
+            "repro_torch.bench", "repro_torch.bench.common",
+            "repro_torch.bench.kernels", "repro_torch.examples",
+            "repro_torch.examples.train_gpt100m",
+            "repro_torch.examples.offload_ssd_demo",
+            "repro_torch.examples.train_dp",
+            "repro_torch.examples.lp_config_search",
+            "repro_torch.examples.serve_batched",
+            "repro_torch.examples.quickstart"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -49,8 +64,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import\s+(jax|repro|ml_dtypes)\b(?!_)"
-    r"|from\s+(jax|repro|ml_dtypes)(?:\.|\s)(?!_))", re.M)
+    r"^\s*(?:import\s+(jax|repro|ml_dtypes|benchmarks)\b(?!_)"
+    r"|from\s+(jax|repro|ml_dtypes|benchmarks)(?:\.|\s)(?!_))", re.M)
 
 
 def _sources():
@@ -78,7 +93,8 @@ def test_no_source_imports_jax_or_the_reference():
 def test_the_import_scan_catches_offenders():
     for bad in ("import jax", "from jax import numpy", "import repro.io",
                 "from repro.models import model", "    from repro import x",
-                "import ml_dtypes", "from ml_dtypes import bfloat16"):
+                "import ml_dtypes", "from ml_dtypes import bfloat16",
+                "from benchmarks.common import Reporter"):
         assert _IMPORT.search(bad), bad
     for fine in ("import repro_torch", "from repro_torch.io import IOConfig",
                  "import jaxlib_free_module"):
