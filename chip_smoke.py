@@ -10,7 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes the serving and training paths give it, within the stated
    tolerance, and timed beside its bound, its plain version and one
    PyTorch library call: K1 forward, K1 backward (also run twice and
-   required bit-identical; hd 32, 64 and 128), K2 fused Adam (also the
+   required bit-identical; hd 32, 64, 128 and 256, MLA's q/k 192 with v
+   128 and its smoke config's (48, 32) in f32; hd 80 and bf16 (48, 32)
+   refused; the library call is ``scaled_dot_product_attention`` timed
+   on each backend that takes the inputs, the fastest reported by
+   name), K2 fused Adam (also the
    two-stage ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one
    launch)
    and K3 selective scan (falcon-mamba-7b's prefill shapes, the f32
@@ -94,9 +98,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``repro_torch.bench.kernels``), every row within its tolerance; (q)
    the six examples (``repro_torch.examples``), each passing its own
    check.
+9. archs — the attention architectures at full width: (r) gemma3-1b at
+   full size through ``ServeEngine`` (bf16, half of params and KV on the
+   SSD, prompts of 2048, 1000 and 512 tokens, 16 new tokens each, a
+   preempt): the three-way KV byte invariant over its ring and global
+   units, tokens equal to the in-memory B=1 decode, K1 launches == the
+   layers that take K1 at each prompt's length (4 global, and the 22
+   windowed ones when the prompt is no whole number of windows); (s)
+   gemma3-1b trained through the CLI in memory (bf16, 4 x 2048 tokens,
+   M 2, alpha 0.25): K1 launches of its 4 global layers (forward twice
+   under checkpoint), finite falling losses; (t) deepseek-v2-lite-16b at
+   full size in memory (27 layers, MLA through K1 at q/k 192 and v 128,
+   MoE top-6 of 64 + 2 shared): a prefill of 2 x 1024 for the MoE drop
+   count and 16 timed decode steps at capacity 1.25 (the decode rate),
+   then at capacity factor E / K (no MoE drops) a prefill, 16 greedy
+   decode steps into caches grown one slot a step (no step sees an empty
+   slot), the last step's logits against a fresh prefill's, K1 launches
+   == prefills x 27; (u) deepseek-v2-lite-16b trained at full width, 2
+   layers (K1's backward at (192, 128)); (v) qwen3-moe-235b-a22b at full width, 2
+   layers, as (t); (w) the five SMOKE configs in f32 on the card against
+   the CPU (a training step's loss and gradients, prefill and 4 decode
+   steps) within 1e-5.
 
 Prints every measurement (``serve stats``, ``train stats``, ``dp stats``,
-``mamba stats`` and ``entry stats`` JSON lines, the autotuner's decision
+``mamba stats``, ``entry stats`` and ``archs stats`` JSON lines, the autotuner's decision
 log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``.
@@ -106,6 +131,7 @@ log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
     python3 chip_smoke.py --phases dp
     python3 chip_smoke.py --phases mamba
     python3 chip_smoke.py --phases entry
+    python3 chip_smoke.py --phases kernels,archs
 """
 from __future__ import annotations
 
@@ -165,7 +191,8 @@ ENTRY_STEPS = 30
 # bf16 products do; the engine tests' bf16 tolerance (measured on the
 # card: 6.5e-5)
 TRAINER_LOSS_RTOL = 2e-4
-# (name, B, Hq, Hk, S, hd, dtype, causal, window, q0)
+# (name, B, Hq, Hk, S, hd, dtype, causal, window, q0); hd is one head dim
+# or (q/k head dim, v head dim)
 K1_SHAPES = [
     ("gpt-65b prefill S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None, 0),
     ("gpt-65b prefill S=1024", 1, 64, 64, 1024, 128, "bfloat16", True, None, 0),
@@ -192,7 +219,38 @@ K1_SHAPES = [
     ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
     # GPT-100M's training shape (the entry phase: 16 x 256 tokens)
     ("gpt-100m train S=256", 16, 12, 12, 256, 64, "bfloat16", True, None, 0),
+    # the attention architectures (archs phase): gemma3-1b at hd 256 with
+    # 4 q heads on 1 KV head, a global layer and a windowed prefill that
+    # is no whole number of windows (K1 with the window); f32 at hd 256;
+    # deepseek-v2-lite's MLA at q/k 192 with v 128, its smoke config's
+    # (48, 32) in f32; starcoder2 (G = 9), qwen3-moe (G = 16) and phi3
+    # (G = 4) at hd 128
+    ("gemma3-1b global S=2048", 1, 4, 1, 2048, 256, "bfloat16", True, None,
+     0),
+    ("gemma3-1b local S=1000 window 512", 1, 4, 1, 1000, 256, "bfloat16",
+     True, 512, 0),
+    ("f32 hd256 gqa ragged window q0", 1, 4, 1, 200, 256, "float32", True,
+     48, 16),
+    ("f32 hd256 non-causal ragged", 2, 4, 2, 77, 256, "float32", False,
+     None, 0),
+    ("deepseek-v2-lite mla S=2048", 1, 16, 16, 2048, (192, 128), "bfloat16",
+     True, None, 0),
+    ("deepseek-v2-lite mla S=1000", 1, 16, 16, 1000, (192, 128), "bfloat16",
+     True, None, 0),
+    ("f32 mla (192,128) ragged window q0", 1, 4, 4, 200, (192, 128),
+     "float32", True, 48, 16),
+    ("deepseek-v2-lite-smoke mla f32 (48,32)", 2, 4, 4, 64, (48, 32),
+     "float32", True, None, 0),
+    ("starcoder2-7b S=2048 G=9", 1, 36, 4, 2048, 128, "bfloat16", True, None,
+     0),
+    ("qwen3-moe S=1024 G=16", 1, 64, 4, 1024, 128, "bfloat16", True, None,
+     0),
+    ("phi3-medium-14b S=2048 G=4", 1, 40, 10, 2048, 128, "bfloat16", True,
+     None, 0),
 ]
+#: (q/k, v) head dims K1 must refuse with ValueError, per dtype
+K1_REFUSED = [((80, 80), "bfloat16"), ((80, 80), "float32"),
+              ((48, 32), "bfloat16")]
 HEADLINE = "gpt-65b prefill S=2048"
 
 # K1 backward: (name, B, Hq, Hk, S, hd, dtype, causal, window)
@@ -210,6 +268,26 @@ K1B_SHAPES = [
     ("f32 gqa hd32 ragged window", 1, 8, 2, 200, 32, "float32", True, 48),
     ("hd32 S=2048 causal", 1, 16, 16, 2048, 32, "bfloat16", True, None),
     ("gpt-100m train S=256", 16, 12, 12, 256, 64, "bfloat16", True, None),
+    # the attention architectures, as in K1_SHAPES: gemma3-1b trains its 4
+    # global layers through K1 (its local layers take the banded form at
+    # S = 2048); deepseek-v2-lite's MLA; the GQA groups of 9, 16 and 4
+    ("gemma3-1b global S=2048", 1, 4, 1, 2048, 256, "bfloat16", True, None),
+    ("gemma3-1b local S=1000 window 512", 1, 4, 1, 1000, 256, "bfloat16",
+     True, 512),
+    ("f32 hd256 gqa ragged window", 1, 4, 1, 200, 256, "float32", True, 48),
+    ("deepseek-v2-lite mla S=2048", 1, 16, 16, 2048, (192, 128), "bfloat16",
+     True, None),
+    ("deepseek-v2-lite mla S=1000", 1, 16, 16, 1000, (192, 128), "bfloat16",
+     True, None),
+    ("f32 mla (192,128) ragged window", 1, 4, 4, 200, (192, 128), "float32",
+     True, 48),
+    ("deepseek-v2-lite-smoke mla f32 (48,32)", 2, 4, 4, 64, (48, 32),
+     "float32", True, None),
+    ("starcoder2-7b S=2048 G=9", 1, 36, 4, 2048, 128, "bfloat16", True,
+     None),
+    ("qwen3-moe S=1024 G=16", 1, 64, 4, 1024, 128, "bfloat16", True, None),
+    ("phi3-medium-14b S=2048 G=4", 1, 40, 10, 2048, 128, "bfloat16", True,
+     None),
 ]
 K1B_HEADLINE = "gpt-65b train S=2048"
 
@@ -296,6 +374,57 @@ DECODE_REL_TOL = {1: 0.06, MAMBA_GEN: 0.15}
 # without compounding them
 MAMBA_PARITY_LAYERS, MAMBA_PARITY_S = 2, 256
 MAMBA_PARITY_TOL = 1e-4
+# (the archs phase) gemma3-1b served at full size (26 layers: 22 with a
+# 512-token window, 4 global) with prompts of 2048 and 512 tokens (the
+# banded form in local layers) and 1000 (K1 with the window, the ring
+# written at the clamped start), 16 new tokens each
+ARCHS_SERVE_PROMPTS, ARCHS_GEN = (2048, 1000, 512), 16
+# gemma3-1b trained in memory through the CLI at full size, bf16
+GEMMA_TRAIN_STEPS, GEMMA_TRAIN_B, GEMMA_TRAIN_S = 6, 4, 2048
+# deepseek-v2-lite-16b at full size in memory (27 layers, 15.7 B params),
+# and qwen3-moe-235b-a22b at full width with depth cut to 2 layers (a
+# full-depth stack is ~470 GB of bf16): 2 prompts of 1024 tokens. First
+# the plain generation at the reference's capacity factor 1.25: a prefill
+# (its MoE drop count) and 16 greedy decode steps into caches of prompt +
+# 16 slots, each step timed alone (the decode rate), then two steps more
+# under ``torch.profiler`` (the card's busy share). Then the gate: a
+# prefill, 16 greedy decode steps and a fresh prefill over prompt +
+# generated tokens, with the blocks' MoE at capacity factor E / K (C = T:
+# ``moe_ep.moe_dispatch`` replaced for the gate's scope). The gate's caches
+# hold exactly the positions written so far: the prompt's, then one slot
+# more before each decode step (``grow_caches``), so no step sees an empty
+# slot (the reference's decode lets empty slots into the softmax,
+# ROADMAP.md section 3: with caches of prompt + 16 slots from the start,
+# the early steps' empty slots shift what they write into the deeper
+# layers' caches, and the last step parts from the prefill by 1.2e-2 in
+# f32 at SMOKE size, against 3e-6 grown); and no MoE assignment drops (at
+# 1.25 a decode step of T = 2 tokens and a prefill of T = 2080 drop
+# different assignments: measured rel 0.30 on deepseek-v2-lite and 0.75
+# on qwen3-moe). So the last step's logits can be held against the fresh
+# prefill's last logits
+MOE_B, MOE_S, MOE_GEN = 2, 1024, 16
+QWEN_MOE_LAYERS = 2
+# last decode step vs fresh prefill, ||decode - prefill|| / ||prefill||:
+# the decode attends in f32 (MLA: absorbed, over the bf16 latent cache),
+# the prefill through K1 in bf16, and each layer's output is rounded to
+# bf16 before the next; a token whose router probabilities tie within
+# that rounding can also take another expert. A cache fault (a slot
+# written at the wrong position, a lost row) moves the logits by the
+# order of their own norm
+LAST_STEP_REL_TOL = 0.1
+# deepseek-v2-lite-16b trained through the Trainer at full width, depth
+# cut to its dense prefix layer and one MoE layer (K1's backward at q/k
+# 192, v 128), bf16
+DS_TRAIN_LAYERS, DS_TRAIN_STEPS, DS_TRAIN_B, DS_TRAIN_S = 2, 6, 4, 1024
+# the five SMOKE configs in f32, card against CPU: one training step's
+# loss and gradients, prefill and 4 decode steps' logits. Both sides run
+# the same f32 math (K1 on the card, its plain version on the CPU), so
+# they differ by the order of f32 sums; weight gradients (sums over
+# every token) are held at this tolerance times their leaf's largest
+# element
+ARCHS_SMOKE_TOL = 1e-5
+SMOKE_ARCHS = ("phi3-medium-14b", "starcoder2-7b", "gemma3-1b",
+               "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
 
 
 def nvidia_smi_line() -> str:
@@ -322,30 +451,94 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def head_dims(hd):
+    """(q/k head dim, v head dim) of a shape row's ``hd``."""
+    return tuple(hd) if isinstance(hd, tuple) else (hd, hd)
+
+
+def sdpa_backends(torch, q, k, v, causal, window=None):
+    """``scaled_dot_product_attention`` computing K1's function on these
+    inputs (k and v with q's heads: GQA's KV heads repeated by the caller;
+    a window as a boolean mask), once per backend that takes them.
+    Returns [(backend name, fn)]: ``fn(q, k, v)`` is one call pinned to
+    that backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mask = None
+    if window is not None:
+        i = torch.arange(q.shape[2], device=q.device)
+        d = i[:, None] - i[None, :]
+        mask = d < window
+        if causal:
+            mask &= d >= 0
+    out = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(qq, kk, vv, b=b):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask,
+                    is_causal=causal and mask is None)
+        try:
+            fn(q, k, v)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        out.append((b.name, fn))
+    if not out:
+        raise RuntimeError("no scaled_dot_product_attention backend took "
+                           "the inputs")
+    return out
+
+
+def fastest(times: dict):
+    """(name, ms) of the fastest entry of ``{name: ms}``."""
+    name = min(times, key=times.get)
+    return name, times[name]
+
+
 def k1_work(B, Hq, Hk, S, hd, dtype, causal, window, q0):
     """(bytes, flops) K1 needs on these inputs: q, k, v read once, out and
-    lse written once; 4*hd FLOP (QK^T and PV) per admitted (query, key)
-    pair, counted for this mask."""
+    lse written once; 2*(hd_qk + hd_v) FLOP (QK^T and PV) per admitted
+    (query, key) pair, counted for this mask."""
+    hq, hv = head_dims(hd)
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * hd * S * (2 * B * Hq + 2 * B * Hk) + 4 * B * Hq * S
+    nbytes = item * S * (B * Hq * (hq + hv) + B * Hk * (hq + hv)) \
+        + 4 * B * Hq * S
     pairs = 0
     for i in range(S):
         p = q0 + i
         lo = 0 if window is None else max(0, p - window + 1)
         hi = min(S - 1, p) if causal else S - 1
         pairs += max(0, hi - lo + 1)
-    return nbytes, 4 * hd * pairs * B * Hq
+    return nbytes, 2 * (hq + hv) * pairs * B * Hq
+
+
+def k1_refusals(torch, fa):
+    """Failures: a (q/k, v) head-dim pair of K1_REFUSED that K1 launched
+    instead of raising ValueError."""
+    failures = []
+    for (hq, hv), dts in K1_REFUSED:
+        dt = getattr(torch, dts)
+        q = torch.zeros(1, 2, 64, hq, device="cuda", dtype=dt)
+        v = torch.zeros(1, 2, 64, hv, device="cuda", dtype=dt)
+        try:
+            fa.flash_attention_fwd(q, q, v)
+            failures.append(f"K1 took head dims ({hq}, {hv}) {dts}")
+        except ValueError:
+            pass
+    return failures
 
 
 def phase_kernels(torch, fa, report):
-    import torch.nn.functional as F
     rows = []
     for (name, B, Hq, Hk, S, hd, dts, causal, window, q0) in K1_SHAPES:
         dt = getattr(torch, dts)
+        hq, hv = head_dims(hd)
         g = torch.Generator(device="cuda").manual_seed(len(rows))
-        q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
-        k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
+        q = torch.randn(B, Hq, S, hq, device="cuda", generator=g).to(dt)
+        k = torch.randn(B, Hk, S, hq, device="cuda", generator=g).to(dt)
+        v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
         kw = dict(causal=causal, window=window, q0=q0)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -362,29 +555,36 @@ def phase_kernels(torch, fa, report):
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), reps)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                            max(3, reps // 5), warmup=1)
-        lib_ms = None
-        if window is None and q0 == 0:
+        lib_ms = backend = None
+        lib_all = {}
+        if q0 == 0:
             G = Hq // Hk
             kr = k.repeat_interleave(G, dim=1)
             vr = v.repeat_interleave(G, dim=1)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kr, vr, is_causal=causal), reps)
+            for bname, fn in sdpa_backends(torch, q, kr, vr, causal, window):
+                lib_all[bname] = cuda_ms(lambda: fn(q, kr, vr), reps)
+            backend, lib_ms = fastest(lib_all)
+            del kr, vr
         nbytes, flops = k1_work(B, Hq, Hk, S, hd, dts, causal, window, q0)
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS[dts] * 1e3
-        row = {"shape": name, "q": [B, Hq, S, hd], "kv_heads": Hk,
+        row = {"shape": name, "q": [B, Hq, S, hq], "v_head_dim": hv,
+               "kv_heads": Hk,
                "dtype": dts, "causal": causal, "window": window, "q0": q0,
                "max_abs_err": err, "rel_err": rel_err,
                "lse_max_abs_err": lse_err, "tol": TOL[dts],
                "rel_tol": REL_TOL, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+               "library_ms": lib_ms, "library": backend,
+               "library_ms_by_backend": lib_all,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "tflops": flops / (ms * 1e-3) / 1e12}
         rows.append(row)
         report(f"K1 {name}: err {err:.3e} (tol {TOL[dts]}) rel_err "
                f"{rel_err:.3e} (tol {REL_TOL}) lse_err "
                f"{lse_err:.3e} | kernel {ms:.4f} ms ({row['tflops']:.2f} "
-               f"TFLOP/s) plain {plain_ms:.4f} ms sdpa {lib_ms} ms bound "
+               f"TFLOP/s) plain {plain_ms:.4f} ms sdpa {lib_ms} ms "
+               f"({backend}) bound "
                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) -> "
                f"{'OK' if ok else 'FAIL'}")
         del q, k, v, out, lse, ref, ref_lse
@@ -394,24 +594,28 @@ def phase_kernels(torch, fa, report):
 
 def k1_bwd_work(B, Hq, Hk, S, hd, dtype, causal, window):
     """(bytes, flops) K1's backward needs on these inputs: q, k, v, out,
-    dO and lse read once, dq, dk, dv written once; five products of
-    2*hd FLOP (QK^T, dO V^T, P^T dO, dS K, dS^T Q) per admitted pair."""
+    dO and lse read once, dq, dk, dv written once; five products per
+    admitted pair, of 2*hd_qk FLOP (QK^T, dS K, dS^T Q) or 2*hd_v (dO V^T,
+    P^T dO)."""
+    hq, hv = head_dims(hd)
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * hd * S * (4 * B * Hq + 4 * B * Hk) + 4 * B * Hq * S
+    nbytes = item * S * (2 * B * Hq * (hq + hv) + 2 * B * Hk * (hq + hv)) \
+        + 4 * B * Hq * S
     _, fwd_flops = k1_work(B, Hq, Hk, S, hd, dtype, causal, window, 0)
-    return nbytes, fwd_flops // 4 * 10
+    pair_flops = fwd_flops // (2 * (hq + hv))
+    return nbytes, pair_flops * 2 * (3 * hq + 2 * hv)
 
 
 def phase_k1_bwd(torch, fa, report):
-    import torch.nn.functional as F
     rows = []
     for (name, B, Hq, Hk, S, hd, dts, causal, window) in K1B_SHAPES:
         dt = getattr(torch, dts)
+        hq, hv = head_dims(hd)
         g = torch.Generator(device="cuda").manual_seed(100 + len(rows))
-        q, do = (torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-                for _ in range(2))
+        q = torch.randn(B, Hq, S, hq, device="cuda", generator=g).to(dt)
+        do = torch.randn(B, Hq, S, hv, device="cuda", generator=g).to(dt)
+        k = torch.randn(B, Hk, S, hq, device="cuda", generator=g).to(dt)
+        v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
         kw = dict(causal=causal, window=window)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
@@ -434,25 +638,30 @@ def phase_k1_bwd(torch, fa, report):
                                                     **kw), reps)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, do, lse, **kw), 2, warmup=1)
-        lib_ms = None
-        if window is None:
-            G = Hq // Hk
-            qr = q.detach().requires_grad_()
-            kr = k.repeat_interleave(G, dim=1).detach().requires_grad_()
-            vr = v.repeat_interleave(G, dim=1).detach().requires_grad_()
-            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        G = Hq // Hk
+        qr = q.detach().requires_grad_()
+        kr = k.repeat_interleave(G, dim=1).detach().requires_grad_()
+        vr = v.repeat_interleave(G, dim=1).detach().requires_grad_()
+        lib_all = {}
+        for bname, fn in sdpa_backends(torch, qr, kr, vr, causal, window):
+            o = fn(qr, kr, vr)
+            lib_all[bname] = cuda_ms(lambda: torch.autograd.grad(
                 o, (qr, kr, vr), do, retain_graph=True), reps)
-            del qr, kr, vr, o
+            del o
+        backend, lib_ms = fastest(lib_all)
+        del qr, kr, vr
         nbytes, flops = k1_bwd_work(B, Hq, Hk, S, hd, dts, causal, window)
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS[dts] * 1e3
-        row = {"shape": name, "q": [B, Hq, S, hd], "kv_heads": Hk,
+        row = {"shape": name, "q": [B, Hq, S, hq], "v_head_dim": hv,
+               "kv_heads": Hk,
                "dtype": dts, "causal": causal, "window": window,
                "max_abs_err": err, "rel_err": rel_err, "tol": tol,
                "rel_tol": REL_TOL, "deterministic": deterministic,
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+               "library_ms": lib_ms, "library": backend,
+               "library_ms_by_backend": lib_all,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "tflops": flops / (ms * 1e-3) / 1e12}
         rows.append(row)
@@ -460,6 +669,7 @@ def phase_k1_bwd(torch, fa, report):
                f"{rel_err:.3e} (tol {REL_TOL}) deterministic "
                f"{deterministic} | kernel {ms:.4f} ms ({row['tflops']:.2f} "
                f"TFLOP/s) plain {plain_ms:.4f} ms sdpa-bwd {lib_ms} ms "
+               f"({backend}) "
                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) -> "
                f"{'OK' if ok else 'FAIL'}")
         del q, k, v, do, out, lse, got, again, want
@@ -564,6 +774,16 @@ def check_three_way(eng):
     return errs, measured
 
 
+def k1_layers(cfg, S: int) -> int:
+    """Layers whose prefill (or training forward) of S tokens goes through
+    K1: every global layer, and a windowed layer unless S is a whole
+    number of windows (then it takes the banded form, as the reference
+    dispatches it)."""
+    from repro_torch.models import blocks as blk
+    return sum(1 for k in blk.build_plan(cfg).all_kinds()
+               if k.window is None or S % k.window or S < k.window)
+
+
 def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
                 workroot: str):
     """Three requests through ``ServeEngine`` on the card in bf16, with a
@@ -602,6 +822,7 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
         torch.cuda.reset_peak_memory_stats()
         fa.fwd_launches = 0                  # main path starts here
         prefills, steps, preempted_rid = 0, 0, None
+        want_k1 = 0
         t_run = time.perf_counter()
         step_s = []
         while eng.pending():
@@ -610,6 +831,8 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - ts)
             prefills += len(dec["admitted"])
+            want_k1 += sum(k1_layers(cfg, len(eng.requests[r].prompt))
+                           for r in dec["admitted"])
             steps += 1
             if steps == 5 and preempted_rid is None:
                 preempted_rid = rids[1]
@@ -630,9 +853,9 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
     failures = list(errs)
     if evictions < 1 or snap["kv"]["preempted"] < 1:
         failures.append("the preempt did not happen")
-    if k1_launches != prefills * cfg.num_layers:
-        failures.append(f"K1 launches {k1_launches} != prefills {prefills} "
-                        f"x layers {cfg.num_layers}")
+    if k1_launches != want_k1:
+        failures.append(f"K1 launches {k1_launches} != {want_k1}: the "
+                        f"layers that take K1 over {prefills} prefills")
     ref_prefill_ms = {}
     for rid, p in zip(rids, prompts):
         want, t_pre = reference_decode(torch, mdl, params, cfg, p, gen,
@@ -649,6 +872,7 @@ def phase_serve(torch, fa, report, cfg, prompt_lens, gen: int,
     stats = {
         "steps": steps, "run_s": run_s, "step_s": step_s,
         "prefills": prefills, "k1_launches": k1_launches,
+        "k1_launches_want": want_k1,
         "prefill_ms_mean": 1e3 * pt.get("prefill", 0.0) / max(prefills, 1),
         "in_memory_prefill_ms": ref_prefill_ms,
         "op_seconds": snap["op_seconds"],
@@ -2086,6 +2310,340 @@ def phase_entry(torch, fa, fad, report, workroot):
     return failures, stats
 
 
+def rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| in f32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def grow_caches(torch, mdl, cfg, caches, n: int):
+    """Caches of ``n`` slots holding ``caches``' slots (one fewer) in front:
+    each leaf is copied along the one axis where the sizes differ."""
+    from repro_torch import tree
+    new = mdl.init_caches(cfg, MOE_B, n)
+    for old, dst in zip(tree.leaves(caches), tree.leaves(new)):
+        ax = [i for i, (a, b) in enumerate(zip(old.shape, dst.shape))
+              if a != b]
+        (dst.narrow(ax[0], 0, old.shape[ax[0]]) if ax else dst).copy_(old)
+    return new
+
+
+def moe_generate(torch, fa, report, cfg, label):
+    """``cfg`` at its width in bf16 on the card, random weights. The plain
+    generation at the reference's capacity: a prefill of MOE_B x MOE_S
+    tokens (its MoE drop count) and MOE_GEN greedy ``decode_step``s, each
+    timed alone, then two more under ``torch.profiler``. The gate, with
+    the blocks' MoE at capacity factor E / K (nothing drops): a prefill
+    into caches of MOE_S slots, MOE_GEN greedy ``decode_step``s, each into
+    caches grown by one slot (``grow_caches``), and a fresh prefill over
+    prompt + generated tokens. Returns (failures, stats): K1 launches ==
+    3 prefills x layers (every layer's MLA or GQA prefill goes through
+    K1), the gate's last decode step's logits against the fresh prefill's
+    last logits."""
+    import functools
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+    from repro_torch.models import moe, moe_ep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    prompt = torch.from_numpy(data.batch(MOE_B, MOE_S)).long().to("cuda")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    caches = mdl.init_caches(cfg, MOE_B, MOE_S + MOE_GEN + 2)
+    fa.fwd_launches = 0                          # main path starts here
+    moe.reset_dropped()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = mdl.prefill(params, cfg, {"tokens": prompt}, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    dropped = moe.dropped_count()
+    tok, step_s = torch.argmax(logits, dim=-1), []
+    for i in range(MOE_GEN):
+        t0 = time.perf_counter()
+        logits, caches = mdl.decode_step(params, cfg, tok[:, None],
+                                         MOE_S + i, caches)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    busy = card_busy(torch, lambda: [mdl.decode_step(
+        params, cfg, tok[:, None], MOE_S + MOE_GEN + i, caches)
+        for i in range(2)])
+    del caches
+
+    real_dispatch = moe_ep.moe_dispatch
+    moe_ep.moe_dispatch = functools.partial(
+        moe.moe_apply, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    try:
+        moe.reset_dropped()
+        caches = mdl.init_caches(cfg, MOE_B, MOE_S)
+        logits, caches = mdl.prefill(params, cfg, {"tokens": prompt},
+                                     caches)
+        toks = [torch.argmax(logits, dim=-1)]
+        for i in range(MOE_GEN):
+            caches = grow_caches(torch, mdl, cfg, caches, MOE_S + i + 1)
+            logits, caches = mdl.decode_step(params, cfg, toks[-1][:, None],
+                                             MOE_S + i, caches)
+            toks.append(torch.argmax(logits, dim=-1))
+        last = logits
+        full = torch.cat([prompt] + [t[:, None] for t in toks[:-1]], dim=1)
+        fresh = mdl.init_caches(cfg, MOE_B, full.shape[1])
+        want, _ = mdl.prefill(params, cfg, {"tokens": full}, fresh)
+        torch.cuda.synchronize()
+        gate_dropped = moe.dropped_count()
+    finally:
+        moe_ep.moe_dispatch = real_dispatch
+    launches = fa.fwd_launches                   # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    rel = rel_norm(last, want)
+    top1 = float((last.argmax(-1) == want.argmax(-1)).float().mean())
+    failures = []
+    finite = bool(torch.isfinite(last).all()) and bool(
+        torch.isfinite(want).all())
+    if not finite or rel > LAST_STEP_REL_TOL:
+        failures.append(f"({label}) {cfg.name}: last decode step vs fresh "
+                        f"prefill rel {rel} (tol {LAST_STEP_REL_TOL}), "
+                        f"finite {finite}")
+    if launches != 3 * L:
+        failures.append(f"({label}) {cfg.name}: K1 launches {launches} != "
+                        f"3 prefills x {L} layers")
+    if gate_dropped:
+        failures.append(f"({label}) {cfg.name}: {gate_dropped} MoE "
+                        f"assignments dropped at capacity factor E / K")
+    decode_tps = MOE_B * MOE_GEN / sum(step_s)
+    median_ms = 1e3 * sorted(step_s)[len(step_s) // 2]
+    stats = {"model": cfg.name, "layers": L, "params": n_params,
+             "init_s": init_s, "prefill_s": prefill_s,
+             "prefill_tokens_per_s": MOE_B * MOE_S / prefill_s,
+             "decode_step_s": step_s, "decode_tokens_per_s": decode_tps,
+             "decode_2_steps_busy": busy,
+             "last_step_rel": rel, "last_step_top1_agree": top1,
+             "moe_dropped_first_prefill": dropped,
+             "moe_assignments_first_prefill":
+                 (L - cfg.first_dense_layers) * MOE_B * MOE_S
+                 * cfg.moe_top_k,
+             "k1_launches": launches, "max_memory_allocated": peak}
+    report(f"({label}) {cfg.name} ({L} layers, {n_params / 1e9:.2f} B "
+           f"params, bf16, init {init_s:.1f} s): prefill {MOE_B} x {MOE_S} "
+           f"in {prefill_s:.3f} s ({stats['prefill_tokens_per_s']:.0f} "
+           f"tokens/s), decode at capacity 1.25 {decode_tps:.1f} tokens/s "
+           f"(median step {median_ms:.1f} ms; 2 steps under the profiler: "
+           f"card busy {busy['busy_ms']:.1f} of {busy['wall_ms']:.1f} ms, "
+           f"{100 * busy['busy_share']:.1f} %), MoE dropped {dropped} of "
+           f"{stats['moe_assignments_first_prefill']} assignments in the "
+           f"first prefill, gate: last step vs fresh prefill rel "
+           f"{rel:.4f} (tol {LAST_STEP_REL_TOL}), top-1 agree {top1}, K1 "
+           f"launches {launches} (want {3 * L}), max_memory_allocated "
+           f"{peak / 2**30:.2f} GiB -> {'OK' if not failures else 'FAIL'}")
+    del params, caches, fresh, logits, want, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, stats
+
+
+def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
+    """Gate (w): the SMOKE configs of ``archs`` in f32, the same params on
+    the card and on the CPU: a training step's loss and gradients
+    (``loss_fn`` + backward, 2 x 64 tokens), then prefill of 2 x 40 tokens
+    and 4 decode steps' logits, each within ARCHS_SMOKE_TOL. Returns
+    (failures, gaps by arch)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as mdl
+
+    failures, gaps = [], {}
+    for arch in archs:
+        cfg = get_smoke(arch)
+        params = mdl.init_params(cfg, 3, dtype=torch.float32, device="cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree.tree_map(
+                lambda a: a.detach().to(dev).requires_grad_(), params)
+            loss = mdl.loss_fn(p, cfg, {"tokens": toks.to(dev)})
+            loss.backward()
+            grads = [t.grad.cpu() for t in tree.leaves(p)]
+            p = tree.tree_map(lambda a: a.detach(), p)
+            caches = mdl.init_caches(cfg, 2, 48, torch.float32, device=dev)
+            logits, caches = mdl.prefill(
+                p, cfg, {"tokens": toks[:, :40].to(dev)}, caches)
+            seq = [logits.cpu()]
+            for i in range(4):
+                logits, caches = mdl.decode_step(
+                    p, cfg, toks[:, 40 + i:41 + i].to(dev), 40 + i, caches)
+                seq.append(logits.cpu())
+            out[dev] = (float(loss.detach()), grads, seq)
+        (lc, gc_, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+        loss_gap = abs(lc - lg)
+        grad_gap = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(gg, gc_))
+        logit_gap = max(float((a - b).abs().max()) for a, b in zip(sg, sc))
+        gaps[arch] = {"loss": loss_gap, "grad_scaled": grad_gap,
+                      "logits": logit_gap}
+        ok = max(loss_gap, grad_gap, logit_gap) <= ARCHS_SMOKE_TOL
+        if not ok:
+            failures.append(f"(w) {arch}-smoke f32 card vs CPU: {gaps[arch]}"
+                            f" (tol {ARCHS_SMOKE_TOL})")
+        report(f"(w) {arch}-smoke f32 card vs CPU: loss {loss_gap:.3e}, "
+               f"gradients {grad_gap:.3e} (of each leaf's max), prefill + 4 "
+               f"decode logits {logit_gap:.3e} (tol {ARCHS_SMOKE_TOL}) -> "
+               f"{'OK' if ok else 'FAIL'}")
+    return failures, gaps
+
+
+def phase_archs(torch, fa, report, workroot):
+    """The attention architectures at full width on the card, each through
+    the port's own entry points: (r) gemma3-1b served, (s) gemma3-1b
+    trained through the CLI, (t) deepseek-v2-lite-16b generating at full
+    size, (u) deepseek-v2-lite-16b trained (2 layers), (v)
+    qwen3-moe-235b-a22b generating (2 layers), (w) the five SMOKE configs
+    card vs CPU. Returns (failures, stats)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    from repro_torch.train import Trainer
+    from repro_torch.core import ScheduleConfig
+    from repro_torch.optim import AdamConfig
+
+    failures, stats, wall = [], {}, {}
+
+    # (r) gemma3-1b through ServeEngine
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    report(f"(r) serve model: {cfg.name} at full size ({cfg.num_layers} "
+           f"layers, window {cfg.sliding_window} on all but every "
+           f"{cfg.global_attn_every}th, d_model {cfg.d_model}, "
+           f"{cfg.num_heads}:{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+           f"vocab {cfg.vocab_size}), bf16 params, prompts "
+           f"{ARCHS_SERVE_PROMPTS}, {ARCHS_GEN} new tokens each")
+    f, st = phase_serve(torch, fa, report, cfg, ARCHS_SERVE_PROMPTS,
+                        ARCHS_GEN, workroot)
+    failures += [f"(r) {m}" for m in f]
+    report(f"(r) {cfg.name} served: {st['prefills']} prefills, K1 launches "
+           f"{st['k1_launches']} (want {st['k1_launches_want']}), decode "
+           f"{st['decode_tokens_per_s']:.3f} tokens/s, end to end "
+           f"{st['end_to_end_tokens_per_s']:.3f} tokens/s over "
+           f"{st['steps']} steps in {st['run_s']:.2f} s, KV hit rate "
+           f"{st['kv_hit_rate']:.3f} -> {'OK' if not f else 'FAIL'}")
+    stats["serve_gemma3"] = st
+    wall["r"] = time.perf_counter() - t0
+
+    # (s) gemma3-1b trained through the CLI in memory
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_k1 = k1_layers(cfg, GEMMA_TRAIN_S)
+    fa.fwd_launches = fa.bwd_launches = 0        # main path starts here
+    out = cli.main(["--arch", "gemma3-1b", "--steps", str(GEMMA_TRAIN_STEPS),
+                    "--batch", str(GEMMA_TRAIN_B), "--seq",
+                    str(GEMMA_TRAIN_S), "--microbatches", "2", "--alpha",
+                    "0.25"])
+    torch.cuda.synchronize()
+    launches = (fa.fwd_launches, fa.bwd_launches)  # main path ends here
+    # every layer runs under checkpoint: K1's forward twice a step
+    want = (2 * n_k1 * GEMMA_TRAIN_STEPS, n_k1 * GEMMA_TRAIN_STEPS)
+    losses = out["losses"]
+    ok = (launches == want and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0])
+    if not ok:
+        failures.append(f"(s) gemma3-1b CLI: launches {launches} != {want} "
+                        f"or losses not finite and falling: {losses}")
+    stats["train_gemma3"] = {
+        "steps": GEMMA_TRAIN_STEPS, "batch": GEMMA_TRAIN_B,
+        "seq_len": GEMMA_TRAIN_S, "micro_batches": 2, "alpha": 0.25,
+        "losses": losses, "s_per_step": 1.0 / out["steps_per_s"],
+        "tokens_per_s": out["tokens_per_s"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1]}}
+    report(f"(s) {cfg.name} CLI in memory, bf16, {GEMMA_TRAIN_STEPS} steps "
+           f"of {GEMMA_TRAIN_B} x {GEMMA_TRAIN_S}, M 2, alpha 0.25: "
+           f"{1.0 / out['steps_per_s']:.3f} s/step, "
+           f"{out['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} -> "
+           f"{losses[-1]:.4f}, K1 launches (fwd, bwd) {launches} (want "
+           f"{want}: {n_k1} global layers), max_memory_allocated "
+           f"{stats['train_gemma3']['max_memory_allocated'] / 2**30:.2f} "
+           f"GiB -> {'OK' if ok else 'FAIL'}")
+    wall["s"] = time.perf_counter() - t0
+
+    # (t) deepseek-v2-lite-16b at full size, in memory
+    t0 = time.perf_counter()
+    f, stats["generate_deepseek"] = moe_generate(
+        torch, fa, report, get_config("deepseek-v2-lite-16b"), "t")
+    failures += f
+    wall["t"] = time.perf_counter() - t0
+
+    # (u) deepseek-v2-lite-16b trained, depth cut to 2 layers
+    t0 = time.perf_counter()
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, num_layers=DS_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, ScheduleConfig(num_microbatches=2, alpha=0.25),
+                 AdamConfig(lr=1e-3))
+    fa.fwd_launches = fa.bwd_launches = 0        # main path starts here
+    rep = tr.run(DS_TRAIN_STEPS, DS_TRAIN_B, DS_TRAIN_S, log_every=0)
+    torch.cuda.synchronize()
+    launches = (fa.fwd_launches, fa.bwd_launches)  # main path ends here
+    want = (2 * DS_TRAIN_LAYERS * DS_TRAIN_STEPS,
+            DS_TRAIN_LAYERS * DS_TRAIN_STEPS)
+    losses = rep.losses
+    ok = (launches == want and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0])
+    if not ok:
+        failures.append(f"(u) deepseek-v2-lite-16b Trainer: launches "
+                        f"{launches} != {want} or losses not finite and "
+                        f"falling: {losses}")
+    stats["train_deepseek"] = {
+        "layers": DS_TRAIN_LAYERS, "steps": DS_TRAIN_STEPS,
+        "batch": DS_TRAIN_B, "seq_len": DS_TRAIN_S, "losses": losses,
+        "tokens_per_s": rep.tokens_per_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1]}}
+    report(f"(u) {full.name} Trainer, full width, depth cut "
+           f"{full.num_layers} -> {DS_TRAIN_LAYERS} (the dense layer and "
+           f"one MoE layer), bf16, {DS_TRAIN_STEPS} steps of {DS_TRAIN_B} x "
+           f"{DS_TRAIN_S}, M 2, alpha 0.25: {rep.tokens_per_s:.0f} "
+           f"tokens/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, K1 "
+           f"launches (fwd, bwd) {launches} (want {want}), "
+           f"max_memory_allocated "
+           f"{stats['train_deepseek']['max_memory_allocated'] / 2**30:.2f} "
+           f"GiB -> {'OK' if ok else 'FAIL'}")
+    del tr
+    wall["u"] = time.perf_counter() - t0
+
+    # (v) qwen3-moe-235b-a22b, depth cut to 2 layers
+    t0 = time.perf_counter()
+    full = get_config("qwen3-moe-235b-a22b")
+    f, stats["generate_qwen3_moe"] = moe_generate(
+        torch, fa, report, dataclasses.replace(
+            full, num_layers=QWEN_MOE_LAYERS), "v")
+    failures += f
+    wall["v"] = time.perf_counter() - t0
+
+    # (w) the five SMOKE configs, f32, card against CPU
+    t0 = time.perf_counter()
+    f, stats["smoke_card_vs_cpu"] = archs_smoke_parity(torch, report)
+    failures += f
+    wall["w"] = time.perf_counter() - t0
+    stats["gate_wall_s"] = wall
+    return failures, stats
+
+
 def _kernel_entry(name, source, replaces, launches, rows, headline,
                   smi, **extra):
     head = next((r for r in rows if r["shape"] == headline), None)
@@ -2101,9 +2659,10 @@ def _kernel_entry(name, source, replaces, launches, rows, headline,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,train,dp,mamba,entry",
+    ap.add_argument("--phases",
+                    default="kernels,serve,train,dp,mamba,entry,archs",
                     help="comma list of: kernels, serve, train, dp, mamba, "
-                         "entry")
+                         "entry, archs")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2150,6 +2709,7 @@ def main() -> int:
     if "kernels" in phases:
         t0 = time.perf_counter()
         rows = phase_kernels(torch, fa, report)
+        failures += k1_refusals(torch, fa)
         failures += [f"K1 {r['shape']}: err {r['max_abs_err']} rel_err "
                      f"{r['rel_err']} lse_err {r['lse_max_abs_err']}"
                      for r in rows if not r["ok"]]
@@ -2315,6 +2875,14 @@ def main() -> int:
                              for k, v in estats["examples"].items()}))
         report("entry stats: " + json.dumps(estats))
         wall["entry"] = time.perf_counter() - t0
+    # 9. archs
+    astats = {}
+    if "archs" in phases:
+        t0 = time.perf_counter()
+        f, astats = phase_archs(torch, fa, report, workroot)
+        failures += f
+        report("archs stats: " + json.dumps(astats))
+        wall["archs"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
@@ -2329,16 +2897,27 @@ def main() -> int:
     td = dstats.get("launches", {})
     te = estats.get("cli", {}).get("launches", {})
     to = estats.get("cli_offload", {}).get("launches", {})
-    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to))
+    tg = astats.get("train_gemma3", {}).get("launches", {})
+    tq = astats.get("train_deepseek", {}).get("launches", {})
+    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq))
           for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
+    arch_k1 = {"archs_serve_gemma3": astats.get("serve_gemma3", {}).get(
+                   "k1_launches", 0),
+               "archs_generate_deepseek": astats.get(
+                   "generate_deepseek", {}).get("k1_launches", 0),
+               "archs_generate_qwen3_moe": astats.get(
+                   "generate_qwen3_moe", {}).get("k1_launches", 0)}
     kernels = [
         _kernel_entry("K1 flash_attention_fwd",
                       "src/repro_torch/csrc/flash_attention_fwd.cu",
                       "src/repro/kernels/flash_attention.py:27",
-                      serve_k1 + tl["k1_fwd"], rows, HEADLINE, smi,
+                      serve_k1 + sum(arch_k1.values()) + tl["k1_fwd"],
+                      rows, HEADLINE, smi,
                       launches_by_path={
-                          "serve": serve_k1,
+                          "serve": serve_k1, **arch_k1,
+                          "archs_train_gemma3": tg.get("k1_fwd", 0),
+                          "archs_train_deepseek": tq.get("k1_fwd", 0),
                           "train_recompute": tr.get("k1_fwd", 0),
                           "train_spill": ts.get("k1_fwd", 0),
                           "train_dp": td.get("k1_fwd", 0),
@@ -2353,7 +2932,9 @@ def main() -> int:
                           "train_spill": ts.get("k1_bwd", 0),
                           "train_dp": td.get("k1_bwd", 0),
                           "entry_cli": te.get("k1_bwd", 0),
-                          "entry_cli_offload": to.get("k1_bwd", 0)}),
+                          "entry_cli_offload": to.get("k1_bwd", 0),
+                          "archs_train_gemma3": tg.get("k1_bwd", 0),
+                          "archs_train_deepseek": tq.get("k1_bwd", 0)}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl["k2"], arows, K2_HEADLINE, smi,

@@ -1,8 +1,10 @@
 """Config registry of the port: ``get_config(name)`` / ``get_smoke(name)``.
 
-The architectures the port's slices run (dense stacks of global GQA
-attention + MLP, and the pure-Mamba falcon-mamba-7b); the dataclass and
-the configs themselves are copies of the reference's.
+The architectures the port's slices run: dense stacks of GQA attention
++ MLP (global, or gemma3's 5:1 sliding-window:global), the MoE stacks
+(deepseek-v2-lite's MLA + shared experts, qwen3-moe), and the pure-Mamba
+falcon-mamba-7b; the dataclass and the configs themselves are copies of
+the reference's.
 """
 from __future__ import annotations
 
@@ -19,6 +21,13 @@ _MODULES = {
     "gpt-100m": ("repro_torch.configs.tiny", "GPT_100M"),
     "gpt-tiny": ("repro_torch.configs.tiny", "GPT_TINY"),
     "falcon-mamba-7b": ("repro_torch.configs.falcon_mamba_7b", "CONFIG"),
+    "phi3-medium-14b": ("repro_torch.configs.phi3_medium_14b", "CONFIG"),
+    "starcoder2-7b": ("repro_torch.configs.starcoder2_7b", "CONFIG"),
+    "gemma3-1b": ("repro_torch.configs.gemma3_1b", "CONFIG"),
+    "deepseek-v2-lite-16b": ("repro_torch.configs.deepseek_v2_lite_16b",
+                             "CONFIG"),
+    "qwen3-moe-235b-a22b": ("repro_torch.configs.qwen3_moe_235b_a22b",
+                            "CONFIG"),
 }
 
 
@@ -29,8 +38,8 @@ def _entry(name: str):
         raise KeyError(
             f"{name!r} is not an architecture of the port (it has "
             f"{sorted(_MODULES)}); the other architectures of the "
-            "reference come with later slices (ROADMAP.md, section 1, "
-            "item 5)") from None
+            "reference (encoder-decoder, VLM, hybrid) come with later "
+            "slices (ROADMAP.md, section 1, item 5)") from None
 
 
 def get_config(name: str) -> ArchConfig:

@@ -4,8 +4,8 @@
 // Replaces: K1's Pallas kernel (src/repro/kernels/flash_attention.py) is
 // forward only; the reference's backward is the chunked jnp VJP
 // `_flash_vjp_bwd` (src/repro/models/attention.py), which this computes:
-// for q (B,Hq,Sq,hd), k/v (B,Hk,Skv,hd), the forward's out and lse (f32)
-// and dO, with GQA (q head h reads KV head h / (Hq/Hk)), the top-left
+// for q (B,Hq,Sq,hd), k (B,Hk,Skv,hd), v (B,Hk,Skv,hdv), the forward's out
+// and lse (f32) and dO (B,Hq,Sq,hdv), with GQA (q head h reads KV head h / (Hq/Hk)), the top-left
 // causal mask from position 0 and an optional sliding window,
 //
 //   delta_i = sum_d dO_id O_id
@@ -69,11 +69,18 @@
 // Per step a dK/dV warp at hd 128 keeps 128 f32 accumulators (dK and dV
 // for 16 keys) and 32 for S^T and dP^T; the 32-row step is what keeps
 // that without a spill.
+//   hd 256 (gemma3) and (192, 128) (MLA, v head dim 128): a block writes
+//   half of the output columns (NS = 2 column parts, a grid dimension),
+//   so its accumulators are those of hd 128 or fewer; each part
+//   recomputes S and dP over the whole head dim. Shared memory at 256:
+//   dK/dV 135,168 B, dQ 202,752 B (one block per SM).
 //
 // f32: the tensor cores would round to TF32, outside the 1e-5 tolerance,
-// so f32 keeps the CUDA-core design: 64 x 64 tiles staged as f32 with a
-// row stride of hd + 1, 256 threads as 16 x 16, each owning a 4 x 4
-// sub-tile of the score tile and 4 rows x hd/16 columns of the outputs.
+// so f32 keeps the CUDA-core design: BT x BT tiles staged as f32 with a
+// row stride of hd + 1, 256 threads as 16 x 16, each owning an R x R
+// sub-tile of the score tile (R = BT / 16) and R rows x hd/16 columns of
+// the outputs. BT is 64, or 32 when hd + hdv passes 256 (the four staged
+// tiles then stay in shared memory).
 //
 // Later work: Hopper's own path for the bf16 kernels (`wgmma` with the
 // K/V tile as the shared-memory operand, TMA loads into an mbarrier
@@ -86,9 +93,7 @@
 
 namespace {
 
-constexpr int BT = 64;         // query rows and keys per tile
 constexpr int THREADS = 256;   // 16 x 16
-constexpr int SLD = BT + 1;    // score-tile row stride
 
 typedef __nv_bfloat16 bf16;
 
@@ -105,7 +110,7 @@ __device__ __forceinline__ bool allowed(int r, int c, int Sq, int Skv,
 }
 
 // rows [r0, r0 + BT) of a (S, HD) matrix -> f32 shared tile, zero past S
-template <typename T, int HD>
+template <typename T, int HD, int BT>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int S) {
   for (int idx = threadIdx.x; idx < BT * HD; idx += THREADS) {
@@ -132,49 +137,64 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
   if (lane == 0) delta[row] = s;
 }
 
-// S = Q K^T and dP = dO V^T for the thread's 4 x 4 sub-tile (rows
+template <int HQK, int HV>
+struct F32Tiles {
+  static constexpr int BT = HQK + HV > 256 ? 32 : 64;  // rows and keys a tile
+  static constexpr int R = BT / 16;                    // sub-tile side
+  static constexpr int SLD = BT + 1;                   // score-tile stride
+  static constexpr int LDQ = HQK + 1, LDV = HV + 1;
+  static constexpr size_t DKDV_SMEM =
+      sizeof(float) * (2 * BT * LDQ + 2 * BT * LDV + 2 * BT * SLD + 2 * BT);
+  static constexpr size_t DQ_SMEM =
+      sizeof(float) * (2 * BT * LDQ + 2 * BT * LDV + BT * SLD + 2 * BT);
+};
+
+// S = Q K^T and dP = dO V^T for the thread's R x R sub-tile (rows
 // ty + 16 i of qs/dos, keys tx + 16 j of ks/vs), then P and dS
-template <int HD>
-__device__ __forceinline__ void scores(const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       const float* lse_s,
-                                       const float* del_s, int r0, int c0,
-                                       int Sq, int Skv, int causal,
-                                       int window, float scale, float p[4][4],
-                                       float ds[4][4]) {
-  constexpr int LD = HD + 1;
+template <int HQK, int HV>
+__device__ __forceinline__ void scores(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* del_s, int r0, int c0, int Sq, int Skv,
+    int causal, int window, float scale,
+    float p[F32Tiles<HQK, HV>::R][F32Tiles<HQK, HV>::R],
+    float ds[F32Tiles<HQK, HV>::R][F32Tiles<HQK, HV>::R]) {
+  using F = F32Tiles<HQK, HV>;
+  constexpr int R = F::R, LDQ = F::LDQ, LDV = F::LDV;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qa[4], da[4], kk[4], vv[4];
+  for (int d = 0; d < HQK; ++d) {
+    float qa[R], kk[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = qs[(ty + 16 * i) * LD + d];
-      da[i] = dos[(ty + 16 * i) * LD + d];
-    }
+    for (int i = 0; i < R; ++i) qa[i] = qs[(ty + 16 * i) * LDQ + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kk[j] = ks[(tx + 16 * j) * LD + d];
-      vv[j] = vs[(tx + 16 * j) * LD + d];
-    }
+    for (int j = 0; j < R; ++j) kk[j] = ks[(tx + 16 * j) * LDQ + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
-      }
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < HV; ++d) {
+    float da[R], vv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) da[i] = dos[(ty + 16 * i) * LDV + d];
+#pragma unroll
+    for (int j = 0; j < R; ++j) vv[j] = vs[(tx + 16 * j) * LDV + d];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int ri = ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const bool ok =
           allowed(r0 + ri, c0 + tx + 16 * j, Sq, Skv, causal, window);
       p[i][j] = ok ? expf(s[i][j] * scale - lse_s[ri]) : 0.f;
@@ -183,21 +203,23 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HQK, int HV>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hk, int Sq,
                int Skv, int causal, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
+  using F = F32Tiles<HQK, HV>;
+  constexpr int BT = F::BT, R = F::R, SLD = F::SLD;
+  constexpr int LDQ = F::LDQ, LDV = F::LDV;
+  constexpr int NJQ = HQK / 16, NJV = HV / 16;
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + BT * LD;
-  float* qs = vs + BT * LD;
-  float* dos = qs + BT * LD;
-  float* ps = dos + BT * LD;
+  float* vs = ks + BT * LDQ;
+  float* qs = vs + BT * LDV;
+  float* dos = qs + BT * LDQ;
+  float* ps = dos + BT * LDV;
   float* dss = ps + BT * SLD;
   float* lse_s = dss + BT * SLD;
   float* del_s = lse_s + BT;
@@ -207,14 +229,17 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hk;
   const int64_t kb = ((int64_t)b * Hk + hk) * Skv;
-  load_tile<T, HD>(ks, k + kb * HD, c0, Skv);
-  load_tile<T, HD>(vs, v + kb * HD, c0, Skv);
+  load_tile<T, HQK, BT>(ks, k + kb * HQK, c0, Skv);
+  load_tile<T, HV, BT>(vs, v + kb * HV, c0, Skv);
 
-  float dka[4][NJ], dva[4][NJ];
+  float dka[R][NJQ], dva[R][NJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int j = 0; j < NJQ; ++j) dka[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJV; ++j) dva[i][j] = 0.f;
+  }
 
   // query rows that can see a key of this tile
   const int c_last = min(c0 + BT, Skv) - 1;
@@ -224,72 +249,77 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qb = ((int64_t)b * Hq + hk * G + g) * Sq;
     for (int r0 = (r_lo / BT) * BT; r0 < r_hi; r0 += BT) {
       __syncthreads();  // the previous tile is fully consumed
-      load_tile<T, HD>(qs, q + qb * HD, r0, Sq);
-      load_tile<T, HD>(dos, dO + qb * HD, r0, Sq);
+      load_tile<T, HQK, BT>(qs, q + qb * HQK, r0, Sq);
+      load_tile<T, HV, BT>(dos, dO + qb * HV, r0, Sq);
       for (int i = threadIdx.x; i < BT; i += THREADS) {
         lse_s[i] = r0 + i < Sq ? lse[qb + r0 + i] : 0.f;
         del_s[i] = r0 + i < Sq ? delta[qb + r0 + i] : 0.f;
       }
       __syncthreads();
-      float p[4][4], ds[4][4];
-      scores<HD>(qs, dos, ks, vs, lse_s, del_s, r0, c0, Sq, Skv, causal,
-                 window, scale, p, ds);
+      float p[R][R], ds[R][R];
+      scores<HQK, HV>(qs, dos, ks, vs, lse_s, del_s, r0, c0, Sq, Skv, causal,
+                      window, scale, p, ds);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           ps[(ty + 16 * i) * SLD + tx + 16 * j] = p[i][j];
           dss[(ty + 16 * i) * SLD + tx + 16 * j] = ds[i][j];
         }
       __syncthreads();
       // dV_c += sum_r P_rc dO_r ; dK_c += sum_r dS_rc q_r (keys ty + 16 i)
       for (int r = 0; r < BT; ++r) {
-        float pv[4], dsv[4];
+        float pv[R], dsv[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           pv[i] = ps[r * SLD + ty + 16 * i];
           dsv[i] = dss[r * SLD + ty + 16 * i];
         }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float dov = dos[r * LD + tx + 16 * j];
-          const float qv = qs[r * LD + tx + 16 * j];
+        for (int j = 0; j < NJV; ++j) {
+          const float dov = dos[r * LDV + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dva[i][j] = fmaf(pv[i], dov, dva[i][j]);
-            dka[i][j] = fmaf(dsv[i], qv, dka[i][j]);
-          }
+          for (int i = 0; i < R; ++i) dva[i][j] = fmaf(pv[i], dov, dva[i][j]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJQ; ++j) {
+          const float qv = qs[r * LDQ + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < R; ++i) dka[i][j] = fmaf(dsv[i], qv, dka[i][j]);
         }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int c = c0 + ty + 16 * i;
     if (c >= Skv) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      store(&dk[(kb + c) * HD + tx + 16 * j], dka[i][j]);
-      store(&dv[(kb + c) * HD + tx + 16 * j], dva[i][j]);
-    }
+    for (int j = 0; j < NJQ; ++j)
+      store(&dk[(kb + c) * HQK + tx + 16 * j], dka[i][j]);
+#pragma unroll
+    for (int j = 0; j < NJV; ++j)
+      store(&dv[(kb + c) * HV + tx + 16 * j], dva[i][j]);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HQK, int HV>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              T* __restrict__ dq, int Hq, int Hk, int Sq, int Skv, int causal,
              int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD / 16;
+  using F = F32Tiles<HQK, HV>;
+  constexpr int BT = F::BT, R = F::R, SLD = F::SLD;
+  constexpr int LDQ = F::LDQ, LDV = F::LDV;
+  constexpr int NJ = HQK / 16;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + BT * LD;
-  float* ks = dos + BT * LD;
-  float* vs = ks + BT * LD;
-  float* dss = vs + BT * LD;
+  float* dos = qs + BT * LDQ;
+  float* ks = dos + BT * LDV;
+  float* vs = ks + BT * LDQ;
+  float* dss = vs + BT * LDV;
   float* lse_s = dss + BT * SLD;
   float* del_s = lse_s + BT;
 
@@ -299,16 +329,16 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hk);
   const int64_t qb = ((int64_t)b * Hq + h) * Sq;
   const int64_t kb = ((int64_t)b * Hk + hk) * Skv;
-  load_tile<T, HD>(qs, q + qb * HD, r0, Sq);
-  load_tile<T, HD>(dos, dO + qb * HD, r0, Sq);
+  load_tile<T, HQK, BT>(qs, q + qb * HQK, r0, Sq);
+  load_tile<T, HV, BT>(dos, dO + qb * HV, r0, Sq);
   for (int i = threadIdx.x; i < BT; i += THREADS) {
     lse_s[i] = r0 + i < Sq ? lse[qb + r0 + i] : 0.f;
     del_s[i] = r0 + i < Sq ? delta[qb + r0 + i] : 0.f;
   }
 
-  float acc[4][NJ];
+  float acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
@@ -318,46 +348,39 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int c_lo = window >= 0 ? max(0, r0 - window + 1) : 0;
   for (int c0 = (c_lo / BT) * BT; c0 < c_hi; c0 += BT) {
     __syncthreads();  // the previous tile is fully consumed
-    load_tile<T, HD>(ks, k + kb * HD, c0, Skv);
-    load_tile<T, HD>(vs, v + kb * HD, c0, Skv);
+    load_tile<T, HQK, BT>(ks, k + kb * HQK, c0, Skv);
+    load_tile<T, HV, BT>(vs, v + kb * HV, c0, Skv);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    scores<HD>(qs, dos, ks, vs, lse_s, del_s, r0, c0, Sq, Skv, causal,
-               window, scale, p, ds);
+    float p[R][R], ds[R][R];
+    scores<HQK, HV>(qs, dos, ks, vs, lse_s, del_s, r0, c0, Sq, Skv, causal,
+                    window, scale, p, ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < R; ++j)
         dss[(ty + 16 * i) * SLD + tx + 16 * j] = ds[i][j];
     __syncthreads();
     // dQ_r += sum_c dS_rc k_c (rows ty + 16 i)
     for (int c = 0; c < BT; ++c) {
-      float dsv[4];
+      float dsv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * SLD + c];
+      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * SLD + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float kv = ks[c * LD + tx + 16 * j];
+        const float kv = ks[c * LDQ + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = r0 + ty + 16 * i;
     if (r >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      store(&dq[(qb + r) * HD + tx + 16 * j], acc[i][j]);
+      store(&dq[(qb + r) * HQK + tx + 16 * j], acc[i][j]);
   }
-}
-
-constexpr size_t dkdv_smem(int hd) {
-  return sizeof(float) * (4 * BT * (hd + 1) + 2 * BT * SLD + 2 * BT);
-}
-constexpr size_t dq_smem(int hd) {
-  return sizeof(float) * (4 * BT * (hd + 1) + BT * SLD + 2 * BT);
 }
 
 // ---------------------------------------------------------------------------
@@ -367,16 +390,20 @@ constexpr size_t dq_smem(int hd) {
 constexpr int MT = 128;                  // threads of a bf16 block: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+template <int HQK, int HV>
 struct Tiles {
-  static constexpr int LDS = HD + 8;     // padded row stride (bf16)
+  static constexpr int LDQ = HQK + 8;    // padded row strides (bf16) of
+  static constexpr int LDV = HV + 8;     // q/k/dq/dk rows and v/o/dv rows
+  static constexpr int NS = HQK > 128 ? 2 : 1;  // output column parts
+  static constexpr int QC = HQK / NS;    // dK / dQ columns a block writes
+  static constexpr int VC = HV / NS;     // dV columns a block writes
   static constexpr int BK = 64;          // dK/dV: keys a block, 16 a warp
-  static constexpr int BQ = HD == 128 ? 32 : 64;  // dK/dV: rows a step
+  static constexpr int BQ = HQK + HV >= 256 ? 32 : 64;  // dK/dV: rows a step
   static constexpr int QR = 64;          // dQ: rows a block, 16 a warp
   static constexpr int KC = 64;          // dQ: keys a step
   static constexpr size_t DKDV_SMEM =
-      2 * (2 * BK + 4 * BQ) * LDS + 4 * 4 * BQ;
-  static constexpr size_t DQ_SMEM = 2 * (2 * QR + 4 * KC) * LDS;
+      2 * (BK + 2 * BQ) * (LDQ + LDV) + 4 * 4 * BQ;
+  static constexpr size_t DQ_SMEM = 2 * (QR + 2 * KC) * (LDQ + LDV);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -483,27 +510,29 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
   }
 }
 
-template <int HD>
+template <int HQK, int HV>
 __global__ void __launch_bounds__(MT)
 bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int Hk,
              int Sq, int Skv, int causal, int window, float scale) {
-  using T = Tiles<HD>;
-  constexpr int LDS = T::LDS, BK = T::BK, BQ = T::BQ;
+  using T = Tiles<HQK, HV>;
+  constexpr int LDQ = T::LDQ, LDV = T::LDV, BK = T::BK, BQ = T::BQ;
+  constexpr int QC = T::QC, VC = T::VC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BK * LDS;
-  bf16* qs = vs + BK * LDS;       // [2][BQ][LDS]
-  bf16* dos = qs + 2 * BQ * LDS;  // [2][BQ][LDS]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LDS);  // [2][BQ]
+  bf16* vs = ks + BK * LDQ;
+  bf16* qs = vs + BK * LDV;       // [2][BQ][LDQ]
+  bf16* dos = qs + 2 * BQ * LDQ;  // [2][BQ][LDV]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LDV);  // [2][BQ]
   float* del_s = lse_s + 2 * BQ;                                // [2][BQ]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int c0 = blockIdx.x * BK;
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y / T::NS, b = blockIdx.z;
+  const int cq = (blockIdx.y % T::NS) * QC, cv = (blockIdx.y % T::NS) * VC;
   const int G = Hq / Hk;
   const int64_t kb = ((int64_t)b * Hk + hk) * Skv;
 
@@ -517,27 +546,30 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto prefetch = [&](int s) {
     const int st = s & 1, r0 = r_lo + (s % nq) * BQ;
     const int64_t qb = ((int64_t)b * Hq + hk * G + s / nq) * Sq;
-    stage_rows<HD, BQ>(qs + st * BQ * LDS, q + qb * HD, r0, Sq);
-    stage_rows<HD, BQ>(dos + st * BQ * LDS, dO + qb * HD, r0, Sq);
+    stage_rows<HQK, BQ>(qs + st * BQ * LDQ, q + qb * HQK, r0, Sq);
+    stage_rows<HV, BQ>(dos + st * BQ * LDV, dO + qb * HV, r0, Sq);
     stage_vec<BQ>(lse_s + st * BQ, lse + qb, r0, Sq);
     stage_vec<BQ>(del_s + st * BQ, delta + qb, r0, Sq);
   };
-  stage_rows<HD, BK>(ks, k + kb * HD, c0, Skv);
-  stage_rows<HD, BK>(vs, v + kb * HD, c0, Skv);
+  stage_rows<HQK, BK>(ks, k + kb * HQK, c0, Skv);
+  stage_rows<HV, BK>(vs, v + kb * HV, c0, Skv);
   if (nsteps > 0) prefetch(0);
   cp_commit();
 
-  float dka[HD / 8][4], dva[HD / 8][4];
+  float dka[QC / 8][4], dva[VC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int n = 0; n < QC / 8; ++n) dka[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < VC / 8; ++n) dva[n][e] = 0.f;
+  }
 
   const float sl2 = scale * LOG2E;
   const int kr = warp * 16;  // the warp's keys in the tile
   const int key0 = c0 + kr + g, key1 = key0 + 8;
-  const bf16* kw = ks + kr * LDS + a_off<LDS>(lane);
-  const bf16* vw = vs + kr * LDS + a_off<LDS>(lane);
+  const bf16* kw = ks + kr * LDQ + a_off<LDQ>(lane);
+  const bf16* vw = vs + kr * LDV + a_off<LDV>(lane);
 
   for (int s = 0; s < nsteps; ++s) {
     if (s + 1 < nsteps) prefetch(s + 1);
@@ -545,8 +577,8 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_wait<1>();
     __syncthreads();
     const int st = s & 1, r0 = r_lo + (s % nq) * BQ;
-    const bf16* qt = qs + st * BQ * LDS;
-    const bf16* dot = dos + st * BQ * LDS;
+    const bf16* qt = qs + st * BQ * LDQ;
+    const bf16* dot = dos + st * BQ * LDV;
     const float* lt = lse_s + st * BQ;
     const float* dt = del_s + st * BQ;
 
@@ -557,18 +589,25 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4], va[4];
+    for (int kk = 0; kk < HQK / 16; ++kk) {
+      uint32_t ka[4];
       ldsm4(ka, kw + kk * 16);
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        uint32_t fb[4];
+        ldsm4(fb, qt + np * 16 * LDQ + b_off<LDQ>(lane) + kk * 16);
+        mma16816(sT[2 * np], ka, fb[0], fb[1]);
+        mma16816(sT[2 * np + 1], ka, fb[2], fb[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < HV / 16; ++kk) {
+      uint32_t va[4];
       ldsm4(va, vw + kk * 16);
 #pragma unroll
       for (int np = 0; np < BQ / 16; ++np) {
-        const int off = np * 16 * LDS + b_off<LDS>(lane) + kk * 16;
         uint32_t fb[4];
-        ldsm4(fb, qt + off);
-        mma16816(sT[2 * np], ka, fb[0], fb[1]);
-        mma16816(sT[2 * np + 1], ka, fb[2], fb[3]);
-        ldsm4(fb, dot + off);
+        ldsm4(fb, dot + np * 16 * LDV + b_off<LDV>(lane) + kk * 16);
         mma16816(dpT[2 * np], va, fb[0], fb[1]);
         mma16816(dpT[2 * np + 1], va, fb[2], fb[3]);
       }
@@ -609,13 +648,16 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack2(dpT[2 * j + 1][0], dpT[2 * j + 1][1]),
                               pack2(dpT[2 * j + 1][2], dpT[2 * j + 1][3])};
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        const int off = j * 16 * LDS + bt_off<LDS>(lane) + np * 16;
+      for (int np = 0; np < VC / 16; ++np) {
         uint32_t fb[4];
-        ldsm4t(fb, dot + off);
+        ldsm4t(fb, dot + j * 16 * LDV + bt_off<LDV>(lane) + cv + np * 16);
         mma16816(dva[2 * np], pa, fb[0], fb[1]);
         mma16816(dva[2 * np + 1], pa, fb[2], fb[3]);
-        ldsm4t(fb, qt + off);
+      }
+#pragma unroll
+      for (int np = 0; np < QC / 16; ++np) {
+        uint32_t fb[4];
+        ldsm4t(fb, qt + j * 16 * LDQ + bt_off<LDQ>(lane) + cq + np * 16);
         mma16816(dka[2 * np], da, fb[0], fb[1]);
         mma16816(dka[2 * np + 1], da, fb[2], fb[3]);
       }
@@ -625,42 +667,48 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_wait<0>();
 
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
-    if (key0 < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + (kb + key0) * HD + c) =
+  for (int n = 0; n < QC / 8; ++n) {
+    const int c = cq + n * 8 + t4 * 2;
+    if (key0 < Skv)
+      *reinterpret_cast<uint32_t*>(dk + (kb + key0) * HQK + c) =
           pack2(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (kb + key0) * HD + c) =
-          pack2(dva[n][0], dva[n][1]);
-    }
-    if (key1 < Skv) {
-      *reinterpret_cast<uint32_t*>(dk + (kb + key1) * HD + c) =
+    if (key1 < Skv)
+      *reinterpret_cast<uint32_t*>(dk + (kb + key1) * HQK + c) =
           pack2(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (kb + key1) * HD + c) =
+  }
+#pragma unroll
+  for (int n = 0; n < VC / 8; ++n) {
+    const int c = cv + n * 8 + t4 * 2;
+    if (key0 < Skv)
+      *reinterpret_cast<uint32_t*>(dv + (kb + key0) * HV + c) =
+          pack2(dva[n][0], dva[n][1]);
+    if (key1 < Skv)
+      *reinterpret_cast<uint32_t*>(dv + (kb + key1) * HV + c) =
           pack2(dva[n][2], dva[n][3]);
-    }
   }
 }
 
-template <int HD>
+template <int HQK, int HV>
 __global__ void __launch_bounds__(MT)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dO,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dq, int Hq, int Hk, int Sq, int Skv, int causal,
            int window, float scale) {
-  using T = Tiles<HD>;
-  constexpr int LDS = T::LDS, QR = T::QR, KC = T::KC;
+  using T = Tiles<HQK, HV>;
+  constexpr int LDQ = T::LDQ, LDV = T::LDV, QR = T::QR, KC = T::KC;
+  constexpr int QC = T::QC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + QR * LDS;
-  bf16* ks = dos + QR * LDS;     // [2][KC][LDS]
-  bf16* vs = ks + 2 * KC * LDS;  // [2][KC][LDS]
+  bf16* dos = qs + QR * LDQ;
+  bf16* ks = dos + QR * LDV;     // [2][KC][LDQ]
+  bf16* vs = ks + 2 * KC * LDQ;  // [2][KC][LDV]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * QR;  // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / T::NS, b = blockIdx.z;
+  const int cq = (blockIdx.y % T::NS) * QC;
   const int hk = h / (Hq / Hk);
   const int64_t qb = ((int64_t)b * Hq + h) * Sq;
   const int64_t kb = ((int64_t)b * Hk + hk) * Skv;
@@ -673,11 +721,12 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto prefetch = [&](int s) {
     const int st = s & 1;
-    stage_rows<HD, KC>(ks + st * KC * LDS, k + kb * HD, c_lo + s * KC, Skv);
-    stage_rows<HD, KC>(vs + st * KC * LDS, v + kb * HD, c_lo + s * KC, Skv);
+    stage_rows<HQK, KC>(ks + st * KC * LDQ, k + kb * HQK, c_lo + s * KC,
+                        Skv);
+    stage_rows<HV, KC>(vs + st * KC * LDV, v + kb * HV, c_lo + s * KC, Skv);
   };
-  stage_rows<HD, QR>(qs, q + qb * HD, r0, Sq);
-  stage_rows<HD, QR>(dos, dO + qb * HD, r0, Sq);
+  stage_rows<HQK, QR>(qs, q + qb * HQK, r0, Sq);
+  stage_rows<HV, QR>(dos, dO + qb * HV, r0, Sq);
   if (nsteps > 0) prefetch(0);
   cp_commit();
 
@@ -688,12 +737,12 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dl0 = row0 < Sq ? delta[qb + row0] : 0.f;
   const float dl1 = row1 < Sq ? delta[qb + row1] : 0.f;
   const float sl2 = scale * LOG2E;
-  const bf16* qw = qs + qr * LDS + a_off<LDS>(lane);
-  const bf16* dw = dos + qr * LDS + a_off<LDS>(lane);
+  const bf16* qw = qs + qr * LDQ + a_off<LDQ>(lane);
+  const bf16* dw = dos + qr * LDV + a_off<LDV>(lane);
 
-  float dqa[HD / 8][4];
+  float dqa[QC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < QC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
 
@@ -703,8 +752,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_wait<1>();
     __syncthreads();
     const int st = s & 1, c0 = c_lo + s * KC;
-    const bf16* kt = ks + st * KC * LDS;
-    const bf16* vt = vs + st * KC * LDS;
+    const bf16* kt = ks + st * KC * LDQ;
+    const bf16* vt = vs + st * KC * LDV;
 
     // S = Q K^T and dP = dO V^T: 16 rows x KC keys per warp
     float sc[KC / 8][4], dp[KC / 8][4];
@@ -713,18 +762,25 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], oa[4];
+    for (int kk = 0; kk < HQK / 16; ++kk) {
+      uint32_t qa[4];
       ldsm4(qa, qw + kk * 16);
+#pragma unroll
+      for (int np = 0; np < KC / 16; ++np) {
+        uint32_t fb[4];
+        ldsm4(fb, kt + np * 16 * LDQ + b_off<LDQ>(lane) + kk * 16);
+        mma16816(sc[2 * np], qa, fb[0], fb[1]);
+        mma16816(sc[2 * np + 1], qa, fb[2], fb[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < HV / 16; ++kk) {
+      uint32_t oa[4];
       ldsm4(oa, dw + kk * 16);
 #pragma unroll
       for (int np = 0; np < KC / 16; ++np) {
-        const int off = np * 16 * LDS + b_off<LDS>(lane) + kk * 16;
         uint32_t fb[4];
-        ldsm4(fb, kt + off);
-        mma16816(sc[2 * np], qa, fb[0], fb[1]);
-        mma16816(sc[2 * np + 1], qa, fb[2], fb[3]);
-        ldsm4(fb, vt + off);
+        ldsm4(fb, vt + np * 16 * LDV + b_off<LDV>(lane) + kk * 16);
         mma16816(dp[2 * np], oa, fb[0], fb[1]);
         mma16816(dp[2 * np + 1], oa, fb[2], fb[3]);
       }
@@ -755,9 +811,9 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack2(dp[2 * j + 1][0], dp[2 * j + 1][1]),
                               pack2(dp[2 * j + 1][2], dp[2 * j + 1][3])};
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < QC / 16; ++np) {
         uint32_t fb[4];
-        ldsm4t(fb, kt + j * 16 * LDS + bt_off<LDS>(lane) + np * 16);
+        ldsm4t(fb, kt + j * 16 * LDQ + bt_off<LDQ>(lane) + cq + np * 16);
         mma16816(dqa[2 * np], da, fb[0], fb[1]);
         mma16816(dqa[2 * np + 1], da, fb[2], fb[3]);
       }
@@ -767,13 +823,13 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_wait<0>();
 
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
+  for (int n = 0; n < QC / 8; ++n) {
+    const int c = cq + n * 8 + t4 * 2;
     if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (qb + row0) * HD + c) =
+      *reinterpret_cast<uint32_t*>(dq + (qb + row0) * HQK + c) =
           pack2(dqa[n][0] * scale, dqa[n][1] * scale);
     if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (qb + row1) * HD + c) =
+      *reinterpret_cast<uint32_t*>(dq + (qb + row1) * HQK + c) =
           pack2(dqa[n][2] * scale, dqa[n][3] * scale);
   }
 }
@@ -788,102 +844,105 @@ int launch_delta(const void* o, const void* dO, float* delta, int64_t rows,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HQK, int HV>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dO, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int Hq, int Hk, int Sq, int Skv,
                int causal, int window, float scale, cudaStream_t st) {
   typedef float T;
+  using F = F32Tiles<HQK, HV>;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dOt = static_cast<const T*>(dO);
-  int err = launch_delta<T>(o, dO, delta, (int64_t)B * Hq * Sq, HD, st);
+  int err = launch_delta<T>(o, dO, delta, (int64_t)B * Hq * Sq, HV, st);
   if (err) return err;
-  const size_t s1 = dkdv_smem(HD), s2 = dq_smem(HD);
-  err = (int)cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkdv<T, HQK, HV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)s1);
+                                  (int)F::DKDV_SMEM);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq<T, HQK, HV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)s2);
+                                  (int)F::DQ_SMEM);
   if (err) return err;
-  flash_bwd_dkdv<T, HD><<<dim3((Skv + BT - 1) / BT, Hk, B), THREADS, s1, st>>>(
-      qt, kt, vt, dOt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      Hq, Hk, Sq, Skv, causal, window, scale);
+  flash_bwd_dkdv<T, HQK, HV>
+      <<<dim3((Skv + F::BT - 1) / F::BT, Hk, B), THREADS, F::DKDV_SMEM, st>>>(
+          qt, kt, vt, dOt, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), Hq, Hk, Sq, Skv, causal, window, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dq<T, HD><<<dim3((Sq + BT - 1) / BT, Hq, B), THREADS, s2, st>>>(
-      qt, kt, vt, dOt, lse, delta, static_cast<T*>(dq), Hq, Hk, Sq, Skv,
-      causal, window, scale);
+  flash_bwd_dq<T, HQK, HV>
+      <<<dim3((Sq + F::BT - 1) / F::BT, Hq, B), THREADS, F::DQ_SMEM, st>>>(
+          qt, kt, vt, dOt, lse, delta, static_cast<T*>(dq), Hq, Hk, Sq, Skv,
+          causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HQK, int HV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dO, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, int B, int Hq, int Hk, int Sq, int Skv,
                 int causal, int window, float scale, cudaStream_t st) {
-  using T = Tiles<HD>;
+  using T = Tiles<HQK, HV>;
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* dOt = static_cast<const bf16*>(dO);
-  int err = launch_delta<bf16>(o, dO, delta, (int64_t)B * Hq * Sq, HD, st);
+  int err = launch_delta<bf16>(o, dO, delta, (int64_t)B * Hq * Sq, HV, st);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(bwd_dkdv_mma<HD>,
+  err = (int)cudaFuncSetAttribute(bwd_dkdv_mma<HQK, HV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)T::DKDV_SMEM);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(bwd_dq_mma<HD>,
+  err = (int)cudaFuncSetAttribute(bwd_dq_mma<HQK, HV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)T::DQ_SMEM);
   if (err) return err;
-  bwd_dkdv_mma<HD><<<dim3((Skv + T::BK - 1) / T::BK, Hk, B), MT,
-                     T::DKDV_SMEM, st>>>(
+  bwd_dkdv_mma<HQK, HV><<<dim3((Skv + T::BK - 1) / T::BK, Hk * T::NS, B), MT,
+                          T::DKDV_SMEM, st>>>(
       qt, kt, vt, dOt, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Hq, Hk, Sq, Skv, causal, window, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  bwd_dq_mma<HD><<<dim3((Sq + T::QR - 1) / T::QR, Hq, B), MT, T::DQ_SMEM,
-                   st>>>(qt, kt, vt, dOt, lse, delta, static_cast<bf16*>(dq),
-                         Hq, Hk, Sq, Skv, causal, window, scale);
+  bwd_dq_mma<HQK, HV><<<dim3((Sq + T::QR - 1) / T::QR, Hq * T::NS, B), MT,
+                        T::DQ_SMEM, st>>>(qt, kt, vt, dOt, lse, delta,
+                                          static_cast<bf16*>(dq), Hq, Hk, Sq,
+                                          Skv, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window < 0 means no window. `delta`
-// is caller-allocated f32 scratch of B*Hq*Sq. Returns the first CUDA
-// error of the three launches (0 = all launched).
+// dtype: 0 = float32, 1 = bfloat16; hd is q's and k's head dim, hdv v's
+// (and o's and dO's); the instantiated (dtype, hd, hdv) are the
+// forward's. window < 0 means no window. `delta` is caller-allocated f32
+// scratch of B*Hq*Sq. Returns the first CUDA error of the three launches
+// (0 = all launched), cudaErrorInvalidValue for a shape not instantiated.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dO, const float* lse,
                                    float* delta, void* dq, void* dk, void* dv,
                                    int B, int Hq, int Hk, int Sq, int Skv,
-                                   int hd, int dtype, int causal, int window,
-                                   float scale, void* stream) {
+                                   int hd, int hdv, int dtype, int causal,
+                                   int window, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 32)
-    return launch_f32<32>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                          Sq, Skv, causal, window, scale, st);
-  if (dtype == 0 && hd == 64)
-    return launch_f32<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                          Sq, Skv, causal, window, scale, st);
-  if (dtype == 0 && hd == 128)
-    return launch_f32<128>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                           Sq, Skv, causal, window, scale, st);
-  if (dtype == 1 && hd == 32)
-    return launch_bf16<32>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                           Sq, Skv, causal, window, scale, st);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                           Sq, Skv, causal, window, scale, st);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,
-                            Sq, Skv, causal, window, scale, st);
+#define K1B_CASE(DT, HQK, HV, FN)                                          \
+  if (dtype == DT && hd == HQK && hdv == HV)                               \
+    return FN<HQK, HV>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, Hq, Hk,  \
+                       Sq, Skv, causal, window, scale, st);
+  K1B_CASE(0, 32, 32, launch_f32)
+  K1B_CASE(0, 64, 64, launch_f32)
+  K1B_CASE(0, 128, 128, launch_f32)
+  K1B_CASE(0, 256, 256, launch_f32)
+  K1B_CASE(0, 192, 128, launch_f32)
+  K1B_CASE(0, 48, 32, launch_f32)
+  K1B_CASE(1, 32, 32, launch_bf16)
+  K1B_CASE(1, 64, 64, launch_bf16)
+  K1B_CASE(1, 128, 128, launch_bf16)
+  K1B_CASE(1, 256, 256, launch_bf16)
+  K1B_CASE(1, 192, 128, launch_bf16)
+#undef K1B_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention_fwd` of
 // src/repro/kernels/flash_attention.py, and computes the function of the
 // model's chunked jnp form `_flash_fwd_impl` (src/repro/models/attention.py):
-// q (B,Hq,Sq,hd), k/v (B,Hk,Skv,hd); GQA with q head h reading KV head
+// q (B,Hq,Sq,hd), k (B,Hk,Skv,hd), v (B,Hk,Skv,hdv) -- hdv = hd except for
+// MLA (q/k 192 with v 128; f32 also 48 with 32); GQA with q head h reading KV head
 // h / (Hq/Hk); top-left causal mask shifted by q0 (query row i sits at
 // position q0 + i); optional sliding window (q_pos - kv_pos < window);
 // masked scores are -1e30, the denominator is clamped at 1e-30; `out` in
@@ -58,6 +59,12 @@
 //   hd 32: a row is 64 bytes, so its box is the whole row under the
 //   64-byte swizzle (TMA map and descriptors alike, 8-row groups 512 B
 //   apart); Q K^T takes two k16 steps, P V is `wgmma.m64n32k16`.
+//   hd 256 (gemma3): O is 128 f32 registers a thread, so a K/V tile is
+//   64 keys (S is `wgmma.m64n64k16`, 32 registers) and P V is two
+//   `m64n128k16` products over the two halves of V's four boxes: 64 KB
+//   of Q + 2 stages x (32 KB K + 32 KB V) = 192 KB of shared memory.
+//   (192, 128) (MLA): Q K^T over three boxes, P V as at hd 128, tiles of
+//   128 keys: 48 KB of Q + 2 x (48 KB K + 32 KB V) = 208 KB.
 // Later work: `setmaxnreg` to move registers from the producer to the
 // consumers, ping-pong scheduling of the two consumer warpgroups (one's
 // softmax under the other's products), overlap of the next S product with
@@ -65,8 +72,10 @@
 //
 // f32 (`flash_fwd_f32`): the tensor cores would round to TF32, far
 // outside the 1e-5 tolerance, so f32 runs on the CUDA cores: two threads
-// per query row, each owning half of the row's hd in interleaved float4
-// chunks, K/V tiles of 32 keys staged as f32 and read by broadcast.
+// per query row (four when a head dim passes 128), each owning a share of
+// the row's hd in interleaved float4 chunks, K/V tiles of 32 keys (16
+// when hd + hdv passes 256, to stay in 48 KB of static shared memory)
+// staged as f32 and read by broadcast.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -76,7 +85,6 @@
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block (f32 kernel)
 constexpr int THREADS = 128;    // f32 kernel: 4 warps
 constexpr float NEG_BIG = -1e30f;
 
@@ -84,7 +92,7 @@ typedef __nv_bfloat16 bf16;
 
 // keys that may be unmasked for some row of the block start below this
 __device__ __forceinline__ int kv_limit(int Skv, int causal, int q0, int qt,
-                                        int Sq) {
+                                        int Sq, int BQ) {
   if (!causal) return Skv;
   const int last = q0 + min(qt * BQ + BQ, Sq) - 1;
   return max(0, min(Skv, last + 1));
@@ -103,25 +111,34 @@ __device__ __forceinline__ float masked(float x, int col, int qpos, int Skv,
 // ---------------------------------------------------------------------------
 
 constexpr int WQ = 128;                  // query rows per block
-constexpr int WK = 128;                  // keys per tile
 constexpr int STAGES = 2;                // K/V ring depth
 constexpr int W_THREADS = 2 * 128 + 32;  // two consumer warpgroups + producer
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // A box is BOX bf16 columns of SW bytes, the span of its swizzle: 64
-// columns under the 128-byte swizzle (hd 64 and 128: HD / 64 boxes a row),
-// or hd 32's whole 64-byte row under the 64-byte swizzle.
+// columns under the 128-byte swizzle (hd 64 to 256: hd / 64 boxes a row),
+// or hd 32's whole 64-byte row under the 64-byte swizzle. Q and K rows
+// have HQK columns, V rows HV.
 template <int HD>
+struct Box {
+  static constexpr int COLS = HD < 64 ? HD : 64;  // bf16 columns of a box
+  static constexpr int SW = 2 * COLS;             // bytes of a swizzled row
+  static constexpr int N = HD / COLS;             // boxes per row
+};
+
+template <int HQK, int HV>
 struct WgLayout {
-  static constexpr int BOX = HD < 64 ? HD : 64;  // bf16 columns of a box
-  static constexpr int SW = 2 * BOX;             // bytes of a swizzled row
-  static constexpr int NH = HD / BOX;            // boxes per row
-  static constexpr int Q_BYTES = NH * WQ * SW;   // one Q tile
-  static constexpr int KV_BYTES = NH * WK * SW;  // one K (or V) tile
+  using BQK = Box<HQK>;
+  using BV = Box<HV>;
+  // keys per tile: 64 when O alone takes 128 registers a thread
+  static constexpr int WK = HV > 128 ? 64 : 128;
+  static constexpr int Q_BYTES = BQK::N * WQ * BQK::SW;  // one Q tile
+  static constexpr int K_BYTES = BQK::N * WK * BQK::SW;  // one K tile
+  static constexpr int V_BYTES = BV::N * WK * BV::SW;    // one V tile
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
   // + Q barrier, full and empty per stage; + slack to align to 1024
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
@@ -239,6 +256,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (m64 x n64) += A (smem, K-major) * B (smem, K-major); scale_d 0 starts the sum
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int WK>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (WK == 128)
+    wgmma_ss_n128(d, da, db, scale_d);
+  else
+    wgmma_ss_n64(d, da, db, scale_d);
+}
+
 // d (m64 x n128) += A (registers) * B (smem, MN-major: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
                                              uint64_t db) {
@@ -288,26 +329,34 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
+// O (m64 x HV) += P V for one k16 step; `db` addresses the step's rows of
+// V's first box, `lbo` is the step between boxes (hd 256: two n128 halves,
+// two boxes apart)
+template <int HV>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (HD == 128)
-    wgmma_rs_n128(d, a, db);
-  else if constexpr (HD == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n32(d, a, db);
+                                         uint32_t addr, uint32_t lbo) {
+  constexpr int SW = Box<HV>::SW;
+  if constexpr (HV == 256) {
+    wgmma_rs_n128(d, a, sw_desc<SW>(addr, lbo));
+    wgmma_rs_n128(d + 64, a, sw_desc<SW>(addr + 2 * lbo, lbo));
+  } else if constexpr (HV == 128) {
+    wgmma_rs_n128(d, a, sw_desc<SW>(addr, lbo));
+  } else if constexpr (HV == 64) {
+    wgmma_rs_n64(d, a, sw_desc<SW>(addr, lbo));
+  } else {
+    wgmma_rs_n32(d, a, sw_desc<SW>(addr, lbo));
+  }
 }
 
-template <int HD>
+template <int HQK, int HV>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, int Hq, int Hk, int Sq, int Skv,
                 int q0, int causal, int window, float scale) {
-  using L = WgLayout<HD>;
-  constexpr int SW = L::SW;
+  using L = WgLayout<HQK, HV>;
+  constexpr int SWQ = L::BQK::SW, SWV = L::BV::SW, WK = L::WK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
@@ -343,21 +392,23 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_bar, L::Q_BYTES);
 #pragma unroll
-      for (int x = 0; x < L::NH; ++x)
-        tma_load(q_s + x * WQ * SW, &tq, q_bar, x * L::BOX, first, b * Hq + h);
+      for (int x = 0; x < L::BQK::N; ++x)
+        tma_load(q_s + x * WQ * SWQ, &tq, q_bar, x * L::BQK::COLS, first,
+                 b * Hq + h);
       for (int i = 0; i < ntiles; ++i) {
         const int st = i % STAGES;
         if (i >= STAGES) mbar_wait(empty_bar + 8 * st, (i / STAGES - 1) & 1);
         const uint32_t fb = full_bar + 8 * st;
-        mbar_expect_tx(fb, 2 * L::KV_BYTES);
+        mbar_expect_tx(fb, L::K_BYTES + L::V_BYTES);
         const int k0 = (t_lo + i) * WK;
 #pragma unroll
-        for (int x = 0; x < L::NH; ++x) {
-          tma_load(k_s + st * L::KV_BYTES + x * WK * SW, &tk, fb, x * L::BOX,
-                   k0, b * Hk + hk);
-          tma_load(v_s + st * L::KV_BYTES + x * WK * SW, &tv, fb, x * L::BOX,
-                   k0, b * Hk + hk);
-        }
+        for (int x = 0; x < L::BQK::N; ++x)
+          tma_load(k_s + st * L::K_BYTES + x * WK * SWQ, &tk, fb,
+                   x * L::BQK::COLS, k0, b * Hk + hk);
+#pragma unroll
+        for (int x = 0; x < L::BV::N; ++x)
+          tma_load(v_s + st * L::V_BYTES + x * WK * SWV, &tv, fb,
+                   x * L::BV::COLS, k0, b * Hk + hk);
       }
     }
     return;
@@ -371,12 +422,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int qp0 = q0 + r0, qp1 = q0 + r1;
   const float sl2 = scale * LOG2E;
 
-  float oacc[HD / 2];
+  float oacc[HV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
-  float sacc[64];
+  for (int i = 0; i < HV / 2; ++i) oacc[i] = 0.f;
+  float sacc[WK / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+  for (int i = 0; i < WK / 2; ++i) sacc[i] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(q_bar, 0);
@@ -386,19 +437,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full_bar + 8 * st, (i / STAGES) & 1);
 
     // S = Q K^T over hd in k16 steps (32 bytes along a swizzled row)
-    fence_regs<64>(sacc);
+    fence_regs<WK / 2>(sacc);
     wg_fence();
 #pragma unroll
-    for (int x = 0; x < L::NH; ++x)
+    for (int x = 0; x < L::BQK::N; ++x)
 #pragma unroll
-      for (int kk = 0; kk < L::BOX / 16; ++kk)
-        wgmma_ss_n128(
-            sacc, sw_desc<SW>(q_s + x * WQ * SW + wg * 64 * SW + kk * 32, 0),
-            sw_desc<SW>(k_s + st * L::KV_BYTES + x * WK * SW + kk * 32, 0),
+      for (int kk = 0; kk < L::BQK::COLS / 16; ++kk)
+        wgmma_qk<WK>(
+            sacc,
+            sw_desc<SWQ>(q_s + x * WQ * SWQ + wg * 64 * SWQ + kk * 32, 0),
+            sw_desc<SWQ>(k_s + st * L::K_BYTES + x * WK * SWQ + kk * 32, 0),
             (x | kk) != 0);
     wg_commit();
     wg_wait0();
-    fence_regs<64>(sacc);
+    fence_regs<WK / 2>(sacc);
 
     // online softmax in the log2 domain
     const bool edge = k0 + WK > Skv || (causal && k0 + WK - 1 > q0 + first) ||
@@ -419,7 +471,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mt0 = fmaxf(mt0, fmaxf(s[0], s[1]));
       mt1 = fmaxf(mt1, fmaxf(s[2], s[3]));
     }
-    // a row's 128 scores sit in the 4 threads of its quad
+    // a row's WK scores sit in the 4 threads of its quad
     mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
     mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
     mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
@@ -431,7 +483,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l0 *= c0;  // per-thread partial sums; the quad is summed at the end
     l1 *= c1;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < HV / 8; ++n) {
       oacc[4 * n] *= c0;
       oacc[4 * n + 1] *= c0;
       oacc[4 * n + 2] *= c1;
@@ -454,16 +506,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
     // O += P V: V's rows (keys) are the reduction dimension, so V is the
     // MN-major operand; 16 keys are 16 SW bytes of a box
-    fence_regs<HD / 2>(oacc);
+    fence_regs<HV / 2>(oacc);
     fence_regs<4 * (WK / 16)>(&pa[0][0]);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < WK / 16; ++j)
-      wgmma_pv<HD>(oacc, pa[j],
-                   sw_desc<SW>(v_s + st * L::KV_BYTES + j * 16 * SW, WK * SW));
+      wgmma_pv<HV>(oacc, pa[j], v_s + st * L::V_BYTES + j * 16 * SWV,
+                   WK * SWV);
     wg_commit();
     wg_wait0();
-    fence_regs<HD / 2>(oacc);
+    fence_regs<HV / 2>(oacc);
     fence_regs<4 * (WK / 16)>(&pa[0][0]);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * st);  // the stage is free
@@ -475,15 +527,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
   const float i0 = 1.f / lc0, i1 = 1.f / lc1;
-  const int64_t q_base = (int64_t)(b * Hq + h) * Sq * HD;
+  const int64_t o_base = (int64_t)(b * Hq + h) * Sq * HV;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < HV / 8; ++n) {
     const int c = n * 8 + t4 * 2;
     if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)r0 * HD + c) =
+      *reinterpret_cast<uint32_t*>(o + o_base + (int64_t)r0 * HV + c) =
           pack2(oacc[4 * n] * i0, oacc[4 * n + 1] * i0);
     if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(o + q_base + (int64_t)r1 * HD + c) =
+      *reinterpret_cast<uint32_t*>(o + o_base + (int64_t)r1 * HV + c) =
           pack2(oacc[4 * n + 2] * i1, oacc[4 * n + 3] * i1);
   }
   if (t4 == 0) {
@@ -498,58 +550,77 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 // f32: CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int FK = 32;  // keys per tile
+// TPR threads per query row, each holding every TPR-th float4 chunk of q
+// and of the output; FK keys per tile
+template <int HQK, int HV>
+struct F32Tile {
+  static constexpr int TPR = (HQK > 128 || HV > 128) ? 4 : 2;
+  static constexpr int ROWS = THREADS / TPR;  // query rows per block
+  static constexpr int FK = HQK + HV > 256 ? 16 : 32;
+  static constexpr int NCQ = HQK / 4 / TPR;   // q float4 chunks a thread
+  static constexpr int NCV = HV / 4 / TPR;    // output chunks a thread
+};
 
-template <int HD>
+template <int HQK, int HV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int Hq, int Hk, int Sq, int Skv, int q0,
               int causal, int window, float scale) {
-  constexpr int NC = HD / 8;  // float4 chunks per thread (half a row)
-  __shared__ __align__(16) float ks[FK][HD];
-  __shared__ __align__(16) float vs[FK][HD];
+  using F = F32Tile<HQK, HV>;
+  constexpr int TPR = F::TPR, FK = F::FK, NCQ = F::NCQ, NCV = F::NCV;
+  __shared__ __align__(16) float ks[FK][HQK];
+  __shared__ __align__(16) float vs[FK][HV];
 
   const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int r = tid >> 1;
+  const int part = tid % TPR;
+  const int r = tid / TPR;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
-  const int row = qt * BQ + r;
+  const int row = qt * F::ROWS + r;
   const bool valid = row < Sq;
   const int qpos = q0 + row;
-  const int64_t q_base = (int64_t)(b * Hq + h) * Sq * HD;
-  const int64_t kv_base = (int64_t)(b * Hk + hk) * Skv * HD;
+  const int64_t q_base = (int64_t)(b * Hq + h) * Sq * HQK;
+  const int64_t o_base = (int64_t)(b * Hq + h) * Sq * HV;
+  const int64_t k_base = (int64_t)(b * Hk + hk) * Skv * HQK;
+  const int64_t v_base = (int64_t)(b * Hk + hk) * Skv * HV;
 
-  float4 qr[NC], acc[NC];
+  float4 qr[NCQ], acc[NCV];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = (2 * c + half) * 4;
+  for (int c = 0; c < NCQ; ++c) {
+    const int d = (TPR * c + part) * 4;
     qr[c] = valid ? *reinterpret_cast<const float4*>(q + q_base +
-                                                     (int64_t)row * HD + d)
+                                                     (int64_t)row * HQK + d)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+#pragma unroll
+  for (int c = 0; c < NCV; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = NEG_BIG, l = 0.f;
 
-  const int kv_end = kv_limit(Skv, causal, q0, qt, Sq);
+  const int kv_end = kv_limit(Skv, causal, q0, qt, Sq, F::ROWS);
   const int ntiles = (kv_end + FK - 1) / FK;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * FK;
     __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < FK * HD / 4; idx += THREADS) {
-      const int j = idx / (HD / 4);
-      const int d = (idx % (HD / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (k0 + j < Skv) {
-        const int64_t off = kv_base + (int64_t)(k0 + j) * HD + d;
-        kk = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
+    for (int idx = tid; idx < FK * HQK / 4; idx += THREADS) {
+      const int j = idx / (HQK / 4);
+      const int d = (idx % (HQK / 4)) * 4;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + j < Skv)
+        kk = *reinterpret_cast<const float4*>(k + k_base +
+                                              (int64_t)(k0 + j) * HQK + d);
       *reinterpret_cast<float4*>(&ks[j][d]) = kk;
+    }
+    for (int idx = tid; idx < FK * HV / 4; idx += THREADS) {
+      const int j = idx / (HV / 4);
+      const int d = (idx % (HV / 4)) * 4;
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + j < Skv)
+        vv = *reinterpret_cast<const float4*>(v + v_base +
+                                              (int64_t)(k0 + j) * HV + d);
       *reinterpret_cast<float4*>(&vs[j][d]) = vv;
     }
     __syncthreads();
@@ -560,15 +631,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < FK; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      for (int c = 0; c < NCQ; ++c) {
         const float4 kk =
-            *reinterpret_cast<const float4*>(&ks[j][(2 * c + half) * 4]);
+            *reinterpret_cast<const float4*>(&ks[j][(TPR * c + part) * 4]);
         dot = fmaf(qr[c].x, kk.x, dot);
         dot = fmaf(qr[c].y, kk.y, dot);
         dot = fmaf(qr[c].z, kk.z, dot);
         dot = fmaf(qr[c].w, kk.w, dot);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       s[j] = masked(dot * scale, k0 + j, qpos, Skv, causal, window);
       mt = fmaxf(mt, s[j]);
     }
@@ -576,7 +649,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float m2 = fmaxf(m, mt);
     const float corr = expf(m - m2);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < NCV; ++c) {
       acc[c].x *= corr;
       acc[c].y *= corr;
       acc[c].z *= corr;
@@ -588,9 +661,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float p = expf(s[j] - m2);
       psum += p;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      for (int c = 0; c < NCV; ++c) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&vs[j][(2 * c + half) * 4]);
+            *reinterpret_cast<const float4*>(&vs[j][(TPR * c + part) * 4]);
         acc[c].x = fmaf(p, vv.x, acc[c].x);
         acc[c].y = fmaf(p, vv.y, acc[c].y);
         acc[c].z = fmaf(p, vv.z, acc[c].z);
@@ -604,24 +677,26 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (!valid) return;
   const float lc = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = (2 * c + half) * 4;
-    *reinterpret_cast<float4*>(o + q_base + (int64_t)row * HD + d) =
+  for (int c = 0; c < NCV; ++c) {
+    const int d = (TPR * c + part) * 4;
+    *reinterpret_cast<float4*>(o + o_base + (int64_t)row * HV + d) =
         make_float4(acc[c].x / lc, acc[c].y / lc, acc[c].z / lc,
                     acc[c].w / lc);
   }
-  if (half == 0) lse[(int64_t)(b * Hq + h) * Sq + row] = m + logf(lc);
+  if (part == 0) lse[(int64_t)(b * Hq + h) * Sq + row] = m + logf(lc);
 }
 
-template <int HD>
-void launch_f32(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
-                int causal, int window, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_f32<HD><<<grid, THREADS, 0, stream>>>(
+template <int HQK, int HV>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
+               int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int ROWS = F32Tile<HQK, HV>::ROWS;
+  const dim3 grid((Sq + ROWS - 1) / ROWS, Hq, B);
+  flash_fwd_f32<HQK, HV><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hk, Sq,
       Skv, q0, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -670,22 +745,23 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HQK, int HV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hk, int Sq, int Skv, int q0,
                 int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int BOX = WgLayout<HD>::BOX;
+  using L = WgLayout<HQK, HV>;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, HD, Sq, B * Hq, BOX, WQ) ||
-      !tensor_map(&tk, k, HD, Skv, B * Hk, BOX, WK) ||
-      !tensor_map(&tv, v, HD, Skv, B * Hk, BOX, WK))
+  if (!tensor_map(&tq, q, HQK, Sq, B * Hq, L::BQK::COLS, WQ) ||
+      !tensor_map(&tk, k, HQK, Skv, B * Hk, L::BQK::COLS, L::WK) ||
+      !tensor_map(&tv, v, HV, Skv, B * Hk, L::BV::COLS, L::WK))
     return (int)cudaErrorInvalidValue;
-  const int smem = WgLayout<HD>::SMEM;
+  const int smem = L::SMEM;
   const int err = (int)cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_wgmma<HQK, HV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err) return err;
   const dim3 grid((Sq + WQ - 1) / WQ, Hq, B);
-  flash_fwd_wgmma<HD><<<grid, W_THREADS, smem, stream>>>(
+  flash_fwd_wgmma<HQK, HV><<<grid, W_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, Hq, Hk, Sq, Skv, q0, causal,
       window, scale);
   return (int)cudaGetLastError();
@@ -693,35 +769,34 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window < 0 means no window.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; hd is q's and k's head dim, hdv v's
+// (and the output's). The instantiated (dtype, hd, hdv): both dtypes at
+// (32, 32), (64, 64), (128, 128), (256, 256) and (192, 128); f32 also at
+// (48, 32). window < 0 means no window. Returns cudaGetLastError() after
+// the launch (0 = launched), cudaErrorInvalidValue for any other shape.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
                                    int Hq, int Hk, int Sq, int Skv, int hd,
-                                   int dtype, int q0, int causal, int window,
-                                   float scale, void* stream) {
+                                   int hdv, int dtype, int q0, int causal,
+                                   int window, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hk <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 32)
-    launch_f32<32>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
-                   scale, st);
-  else if (dtype == 0 && hd == 64)
-    launch_f32<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
-                   scale, st);
-  else if (dtype == 0 && hd == 128)
-    launch_f32<128>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal, window,
-                    scale, st);
-  else if (dtype == 1 && hd == 32)
-    return launch_bf16<32>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
-                           window, scale, st);
-  else if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
-                           window, scale, st);
-  else if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,
-                            window, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define K1_CASE(DT, HQK, HV, FN)                                            \
+  if (dtype == DT && hd == HQK && hdv == HV)                                \
+    return FN<HQK, HV>(q, k, v, o, lse, B, Hq, Hk, Sq, Skv, q0, causal,     \
+                       window, scale, st);
+  K1_CASE(0, 32, 32, launch_f32)
+  K1_CASE(0, 64, 64, launch_f32)
+  K1_CASE(0, 128, 128, launch_f32)
+  K1_CASE(0, 256, 256, launch_f32)
+  K1_CASE(0, 192, 128, launch_f32)
+  K1_CASE(0, 48, 32, launch_f32)
+  K1_CASE(1, 32, 32, launch_bf16)
+  K1_CASE(1, 64, 64, launch_bf16)
+  K1_CASE(1, 128, 128, launch_bf16)
+  K1_CASE(1, 256, 256, launch_bf16)
+  K1_CASE(1, 192, 128, launch_bf16)
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
 }

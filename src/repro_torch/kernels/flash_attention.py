@@ -9,7 +9,8 @@ CUDA tensors it launches the CUDA kernel of
 ``_flash_kernel`` of ``repro/kernels/flash_attention.py``) or raises —
 there is no fallback from the card to the plain version.
 
-Both compute, for q ``(B,Hq,Sq,hd)`` and k, v ``(B,Hk,Skv,hd)``, softmax
+Both compute, for q ``(B,Hq,Sq,hd)``, k ``(B,Hk,Skv,hd)`` and v
+``(B,Hk,Skv,hdv)`` (``hdv = hd`` except for MLA), softmax
 attention with GQA grouping (q head ``h`` reads KV head ``h // G``,
 ``G = Hq // Hk``), the model's top-left causal mask shifted by ``q0``,
 an optional sliding ``window``, masked scores of -1e30 and a
@@ -116,8 +117,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the head dims the kernels are instantiated for (both directions)
-HEAD_DIMS = (32, 64, 128)
+#: the (q/k head dim, v head dim) pairs the kernels are instantiated for,
+#: in both directions, per dtype: the models' head dims (32 to 256), MLA
+#: at (192, 128), and deepseek-v2-lite-smoke's MLA (48, 32) in f32 only
+#: (its 96-byte rows fit no TMA swizzle box of the bf16 forward)
+PAIRS = {torch.float32: ((32, 32), (64, 64), (128, 128), (256, 256),
+                         (192, 128), (48, 32)),
+         torch.bfloat16: ((32, 32), (64, 64), (128, 128), (256, 256),
+                          (192, 128))}
 _fn = None
 
 
@@ -126,7 +133,7 @@ def _kernel():
     if _fn is None:
         f = _build.load("flash_attention_fwd").flash_attention_fwd
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                       + [ctypes.c_float, ctypes.c_void_p])
         _fn = f
     return _fn
@@ -147,9 +154,11 @@ def _check(q, k, v):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
     B, Hq, _, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    hv = v.shape[3]
+    if (hd, hv) not in PAIRS[q.dtype]:
+        raise ValueError(f"head dims (q/k {hd}, v {hv}) are not among the "
+                         f"{q.dtype} instantiations {PAIRS[q.dtype]}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if Hq % k.shape[1]:
@@ -161,14 +170,15 @@ def _launch(q, k, v, *, causal, window, q0, scale):
     global fwd_launches
     _check(q, k, v)
     B, Hq, Sq, hd = q.shape
-    Hk, Skv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    Hk, Skv, hv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((B, Hq, Sq, hv))
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), lse.data_ptr(), B, Hq, Hk, Sq, Skv,
-                        hd, _DTYPE_CODE[q.dtype], int(q0), int(bool(causal)),
+                        hd, hv, _DTYPE_CODE[q.dtype], int(q0),
+                        int(bool(causal)),
                         -1 if window is None else int(window), float(scale),
                         stream)
     if err != 0:
@@ -183,8 +193,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1. CPU tensors -> :func:`flash_attention_plain`; CUDA tensors ->
-    the Hopper kernel (f32 or bf16, hd 32, 64 or 128, contiguous) or
-    an exception."""
+    the Hopper kernel (f32 or bf16, head dims among :data:`PAIRS`,
+    contiguous) or an exception."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _launch(q, k, v, causal=causal, window=window, q0=q0,
@@ -262,7 +272,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         f = _build.load("flash_attention_bwd").flash_attention_bwd
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                       + [ctypes.c_float, ctypes.c_void_p])
         _bwd_fn = f
     return _bwd_fn
@@ -271,16 +281,16 @@ def _bwd_kernel():
 def _launch_bwd(q, k, v, out, dout, lse, *, causal, window, scale):
     global bwd_launches
     _check(q, k, v)
-    for name, t, like in (("out", out, q), ("dout", dout, q)):
-        if t.shape != like.shape or t.dtype != like.dtype \
-                or t.device != like.device:
+    B, Hq, Sq, hd = q.shape
+    Hk, Skv, hv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (B, Hq, Sq, hv) or t.dtype != q.dtype \
+                or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
-                             f"match q {tuple(like.shape)} {like.dtype}")
+                             f"match {(B, Hq, Sq, hv)} {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    B, Hq, Sq, hd = q.shape
-    Hk, Skv = k.shape[1], k.shape[2]
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be contiguous f32 {(B, Hq, Sq)}, got "
@@ -294,7 +304,7 @@ def _launch_bwd(q, k, v, out, dout, lse, *, causal, window, scale):
         err = _bwd_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Hq, Hk, Sq, Skv, hd,
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hk, Sq, Skv, hd, hv,
             _DTYPE_CODE[q.dtype], int(bool(causal)),
             -1 if window is None else int(window), float(scale), stream)
     if err != 0:
@@ -311,7 +321,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """K1 backward: (dq, dk, dv) from the forward's inputs, its ``out``
     and ``lse``, and ``dout``. CPU tensors ->
     :func:`flash_attention_bwd_plain`; CUDA tensors -> the Hopper kernel
-    (f32 or bf16, hd 32, 64 or 128, contiguous) or an exception."""
+    (f32 or bf16, head dims among :data:`PAIRS`, contiguous) or an
+    exception."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q0 != 0:
         raise ValueError(f"the flash-attention backward has no query "

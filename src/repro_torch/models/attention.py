@@ -1,16 +1,26 @@
-"""Attention: GQA (+qk-norm, RoPE) with a KV cache, on K1.
+"""Attention: GQA (+qk-norm, RoPE, sliding window with a ring cache)
+and MLA (DeepSeek-V2 multi-head latent attention), on K1.
 
 ``flash_attention`` is the prefill and training path, through the
 autograd function ``kernels.flash_attention.FlashAttention``: on the
 card its forward and backward launch K1's Hopper kernels, on the CPU
-their plain versions. Decode attends one query position against the
-whole cache in plain torch (the reference has no kernel for it). Sliding-window
-(banded) layers and MLA come with a later slice.
+their plain versions. ``banded_attention`` (a sliding-window layer whose
+sequence is a whole number of windows) and decode attention are plain
+torch, as the reference computes them in jnp outside any kernel;
+autograd gives the banded form its backward. MLA's train and prefill
+paths call K1 at q/k head dim ``nope + rope`` and v head dim
+``v_head_dim``; its decode is the reference's absorbed attention over
+the latent cache.
 
 Caches are updated IN PLACE: where the reference builds a new cache
-with ``dynamic_update_slice``, the port writes the new K/V rows and
-slot positions into the cache tensors it was given and returns the same
-``KVCache``.
+with ``dynamic_update_slice``, the port writes the new rows and slot
+positions into the cache tensors it was given and returns the same
+cache. Where the reference's write would overrun the cache,
+``dynamic_update_slice`` clamps its start; the port writes at that
+clamped start (``_clamped_start``), so the two packages fill the same
+slots — a ring prefill of S > window tokens with S % window != 0
+therefore lands at slot 0, as in the reference (ROADMAP.md, section 3,
+"Known gaps in the reference").
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ _NEG_INF = -1e30
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q0: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Hq,Sq,hd); k,v: (B,Hk,Skv,hd). Returns (B,Hq,Sq,hd).
+    """q: (B,Hq,Sq,hd); k: (B,Hk,Skv,hd); v: (B,Hk,Skv,hdv). Returns
+    (B,Hq,Sq,hdv).
 
     GQA is handled by grouping Hq into Hk groups (no K/V repeat).
     Differentiable: the backward is K1's."""
@@ -38,11 +49,52 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                    v.contiguous(), causal, window, q0, scale)
 
 
+def banded_attention(q, k, v, *, window: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Causal sliding-window attention with block-banded compute.
+
+    Requires Sq == Skv and Sq % window == 0 (callers use
+    :func:`flash_attention` otherwise). Each query block of ``window``
+    rows attends to [previous block, own block] with an exact mask, in
+    f32; the output is in q's dtype."""
+    B, Hq, S, hd = q.shape
+    Hk = k.shape[1]
+    G = Hq // Hk
+    w = window
+    nb = S // w
+    hv = v.shape[-1]
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dev = q.device
+    qb = q.reshape(B, Hk, G, nb, w, hd).float()
+    kb = k.reshape(B, Hk, nb, w, hd).float()
+    vb = v.reshape(B, Hk, nb, w, hv).float()
+    # previous block of k/v (block -1 is zeros, masked out)
+    kprev = torch.nn.functional.pad(kb[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    vprev = torch.nn.functional.pad(vb[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    kctx = torch.cat([kprev, kb], dim=3)   # (B,Hk,nb,2w,hd)
+    vctx = torch.cat([vprev, vb], dim=3)
+    s = torch.einsum("bhgnqd,bhnkd->bhgnqk", qb, kctx) * sc
+    qpos = torch.arange(w, device=dev)[:, None]
+    kpos = torch.arange(2 * w, device=dev)[None, :] - w
+    allowed = (kpos <= qpos) & (qpos - kpos < w)   # within-band mask
+    first = torch.arange(nb, device=dev) == 0       # block 0 has no prev
+    no_prev = torch.cat([torch.zeros((w,), dtype=torch.bool, device=dev),
+                         torch.ones((w,), dtype=torch.bool, device=dev)])
+    msk = allowed[None] & (no_prev[None, None, :] | ~first[:, None, None])
+    s = torch.where(msk[None, None, None], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgnqk,bhnkd->bhgnqd", p, vctx)
+    return o.reshape(B, Hq, S, hv).to(q.dtype)
+
+
 def decode_attention(q, k, v, *, kv_pos, pos: int,
+                     window: Optional[int] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Hq,1,hd); k,v: (B,Hk,S,hd); kv_pos: (S,) int32 slot
     positions (-big for empty). pos: current position. Returns
-    (B,Hq,1,hdv)."""
+    (B,Hq,1,hdv). As in the reference, an empty slot passes the causal
+    test of an unwindowed layer and takes part in the softmax with a
+    zero key (ROADMAP.md, section 3, "Known gaps in the reference")."""
     B, Hq, _, hd = q.shape
     Hk = k.shape[1]
     G = Hq // Hk
@@ -50,10 +102,18 @@ def decode_attention(q, k, v, *, kv_pos, pos: int,
     qg = q.reshape(B, Hk, G, hd).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * sc
     ok = kv_pos <= pos
+    if window is not None:
+        ok &= (pos - kv_pos) < window
     s = torch.where(ok[None, None, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return o.reshape(B, Hq, 1, v.shape[-1]).to(q.dtype)
+
+
+def _clamped_start(start: int, n: int, size: int) -> int:
+    """The start at which ``dynamic_update_slice`` writes ``n`` rows into
+    ``size``: clamped to [0, size - n]."""
+    return max(0, min(start, size - n))
 
 
 class KVCache(NamedTuple):
@@ -83,12 +143,10 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
     """x: (B,S,d). mode: train | prefill | decode.
 
     decode: x is (B,1,d), ``pos`` is the position, ``cache`` is updated
-    in place. prefill: fills ``cache`` (when given) in place. train: no
-    cache (differentiable)."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window (banded) attention is ported with the "
-            "off-main-path families slice (ROADMAP § Modules to port)")
+    in place (slot ``pos % s_cache`` of a windowed layer's ring). prefill:
+    fills ``cache`` (when given) in place — a windowed layer keeps the
+    trailing ``min(window, S)`` positions. train: no cache
+    (differentiable)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"gqa_apply mode {mode!r} is not train, prefill "
                          "or decode")
@@ -114,33 +172,161 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs the KV cache to update")
-        slot = int(pos)
+        pos = int(pos)
+        s_cache = cache.k.shape[2]
+        slot = pos % s_cache if window is not None else pos
         cache.k[:, :, slot:slot + 1] = k.to(cache.k.dtype)
         cache.v[:, :, slot:slot + 1] = v.to(cache.v.dtype)
-        cache.slot_pos[slot] = slot
+        cache.slot_pos[slot] = pos
         o = decode_attention(q, cache.k, cache.v, kv_pos=cache.slot_pos,
-                             pos=slot)
+                             pos=pos, window=window)
     else:
-        o = flash_attention(q, k, v, causal=causal)
+        if causal and window is not None and S % window == 0 \
+                and S >= window:
+            o = banded_attention(q, k, v, window=window)
+        else:
+            o = flash_attention(q, k, v, causal=causal, window=window)
         if mode == "prefill" and cache is not None:
-            cache.k[:, :, :S] = k.to(cache.k.dtype)
-            cache.v[:, :, :S] = v.to(cache.v.dtype)
-            cache.slot_pos[:S] = torch.arange(S, dtype=torch.int32,
-                                              device=x.device)
+            s_cache = cache.k.shape[2]
+            # a windowed layer keeps only the trailing `window` positions
+            keep = min(window, S) if window is not None else S
+            start = (S - keep) % s_cache if window is not None else 0
+            start = _clamped_start(start, keep, s_cache)
+            cache.k[:, :, start:start + keep] = k[:, :, S - keep:].to(
+                cache.k.dtype)
+            cache.v[:, :, start:start + keep] = v[:, :, S - keep:].to(
+                cache.v.dtype)
+            cache.slot_pos[start:start + keep] = torch.arange(
+                S - keep, S, dtype=torch.int32, device=x.device)
     o = o.transpose(1, 2).reshape(B, S, Hq * hd)
     return (o @ params["wo"]).to(x.dtype), cache
 
 
 def gqa_cache_shape(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-                    device=None) -> KVCache:
-    """Allocate a KV cache of ``seq_len`` slots on ``device`` (``cuda``
-    unless the caller names another; the windowed ring cache comes with
-    banded attention)."""
+                    device=None, *, window: Optional[int] = None) -> KVCache:
+    """Allocate a KV cache on ``device`` (``cuda`` unless the caller names
+    another): ``seq_len`` slots, or for a sliding-window layer a ring of
+    ``min(window, seq_len)``."""
     device = resolve_device(device)
+    s = min(window, seq_len) if window is not None else seq_len
     Hk, hd = cfg.num_kv_heads, cfg.head_dim
     return KVCache(
-        k=torch.zeros((batch, Hk, seq_len, hd), dtype=dtype, device=device),
-        v=torch.zeros((batch, Hk, seq_len, hd), dtype=dtype, device=device),
+        k=torch.zeros((batch, Hk, s, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, Hk, s, hd), dtype=dtype, device=device),
+        slot_pos=torch.full((s,), -(2 ** 30), dtype=torch.int32,
+                            device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    latent: torch.Tensor    # (B, S, kv_lora)
+    k_rope: torch.Tensor    # (B, S, rope_dim)
+    slot_pos: torch.Tensor  # (S,)
+
+
+def mla_init(generator, cfg, dtype=torch.bfloat16, device=None):
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope, vhd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                       cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    return {
+        "wq": dense_init(generator, (d, H * (nope + rope)), dtype=dtype,
+                         device=device),
+        "w_dkv": dense_init(generator, (d, r + rope), dtype=dtype,
+                            device=device),
+        "kv_norm": init_rms_scale(r, device=device),
+        "w_uk": dense_init(generator, (r, H * nope), dtype=dtype,
+                           device=device),
+        "w_uv": dense_init(generator, (r, H * vhd), dtype=dtype,
+                           device=device),
+        "wo": dense_init(generator, (H * vhd, d), dtype=dtype, device=device),
+    }
+
+
+def mla_apply(params, x, *, cfg, theta: float,
+              cache: Optional[MLACache] = None, pos: Optional[int] = None,
+              mode: str = "train") -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """x: (B,S,d). train / prefill: k is ``[k_nope, k_rope]`` (the rope
+    part shared by every head) at q/k head dim ``nope + rope`` and v at
+    ``v_head_dim``, through K1 with scale 1/sqrt(nope + rope); prefill
+    fills ``cache`` in place. decode: the absorbed form in f32 — queries
+    projected into the latent space, scores against the latent cache and
+    its rope keys, the output projected back by ``w_uv``."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mla_apply mode {mode!r} is not train, prefill "
+                         "or decode")
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope, rope, vhd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                       cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    q = (x @ params["wq"]).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = x @ params["w_dkv"]  # (B,S,r+rope)
+    latent = rms_norm(dkv[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_rope = dkv[..., r:]
+    if mode == "decode":
+        positions = torch.full((1,), int(pos), dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q_rope, positions[None, :], theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions[None, :],
+                        theta)[:, :, 0, :]
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs the MLA cache to update")
+        pos = int(pos)
+        cache.latent[:, pos:pos + 1] = latent.to(cache.latent.dtype)
+        cache.k_rope[:, pos:pos + 1] = k_rope.to(cache.k_rope.dtype)
+        cache.slot_pos[pos] = pos
+        cl, cr = cache.latent.float(), cache.k_rope.float()
+        w_uk = params["w_uk"].reshape(r, H, nope).float()
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat, cl)
+        s_rope = torch.einsum("bshn,btn->bhst", q_rope.float(), cr)
+        s = (s_lat + s_rope) * scale  # (B,H,1,T)
+        ok = cache.slot_pos <= pos
+        s = torch.where(ok[None, None, None, :], s, _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", p, cl)
+        w_uv = params["w_uv"].reshape(r, H, vhd).float()
+        o = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
+    else:
+        k_nope = (latent @ params["w_uk"]).reshape(B, S, H, nope)
+        vfull = (latent @ params["w_uv"]).reshape(B, S, H, vhd)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                      dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        o = flash_attention(qfull.transpose(1, 2), k.transpose(1, 2),
+                            vfull.transpose(1, 2), causal=cfg.causal,
+                            scale=scale).transpose(1, 2)
+        if mode == "prefill" and cache is not None:
+            cache.latent[:, :S] = latent.to(cache.latent.dtype)
+            cache.k_rope[:, :S] = k_rope.to(cache.k_rope.dtype)
+            cache.slot_pos[:S] = torch.arange(S, dtype=torch.int32,
+                                              device=x.device)
+    o = o.reshape(B, S, H * vhd).to(x.dtype)
+    return o @ params["wo"], cache
+
+
+def mla_cache_shape(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
+                    device=None) -> MLACache:
+    """Allocate an MLA cache of ``seq_len`` slots on ``device`` (``cuda``
+    unless the caller names another)."""
+    device = resolve_device(device)
+    return MLACache(
+        latent=torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        k_rope=torch.zeros((batch, seq_len, cfg.qk_rope_head_dim),
+                           dtype=dtype, device=device),
         slot_pos=torch.full((seq_len,), -(2 ** 30), dtype=torch.int32,
                             device=device),
     )

@@ -4,9 +4,10 @@ Stacks are decomposed into ``prefix + period x n + suffix`` exactly as
 in the reference, so parameter and cache trees have the same layout
 (period parameters stacked along a leading axis) and convert leaf by
 leaf. The port runs the period with a Python loop where the reference
-runs ``lax.scan``. Blocks here are attention + MLP (dense stacks) and
+runs ``lax.scan``. Blocks here are GQA (global or sliding-window) or MLA
+attention followed by an MLP or an MoE layer (dense and MoE stacks), and
 the pure-SSM Mamba block (``family == "ssm"``: norm + Mamba, no FFN);
-MLA, MoE, windowed and cross-attention blocks and hybrid stacks come
+cross-attention (encoder-decoder), VLM and hybrid (Jamba) stacks come
 with later slices.
 """
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe_ep
+from repro_torch.models.moe import moe_init
 from repro_torch.models.common import init_rms_scale, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
@@ -92,14 +95,14 @@ def _supported(kind: LayerKind, cfg):
     if cfg.family == "ssm":
         if kind.mixer == "mamba" and not kind.moe:
             return
-    elif (cfg.family != "hybrid" and kind.mixer == "attn"
-          and kind.window is None and not kind.moe and not kind.cross):
+    elif (cfg.family in ("dense", "moe") and kind.mixer in ("attn", "mla")
+          and not kind.cross):
         return
     raise NotImplementedError(
-        f"{kind} blocks ({cfg.family}) are ported with a later slice: MLA, "
-        "MoE, windowed and cross-attention blocks with the off-main-path "
-        "families slice, hybrid (Jamba) stacks after MoE; the port runs "
-        "attention + MLP and pure-SSM Mamba blocks")
+        f"{kind} blocks ({cfg.family}) are ported with a later slice: "
+        "cross-attention (encoder-decoder) and VLM stacks, then hybrid "
+        "(Jamba) stacks; the port runs dense and MoE attention stacks "
+        "(GQA, sliding-window, MLA) and pure-SSM Mamba blocks")
 
 
 def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
@@ -110,32 +113,43 @@ def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
         p["mamba"] = mamba_lib.mamba_init(generator, cfg, dtype,
                                           device=device)
         return p  # pure-mamba block: no separate FFN
-    p["attn"] = attn_lib.gqa_init(generator, cfg, dtype, device=device)
+    init = attn_lib.mla_init if kind.mixer == "mla" else attn_lib.gqa_init
+    p["attn"] = init(generator, cfg, dtype, device=device)
     p["norm2"] = init_rms_scale(cfg.d_model, device=device)
-    p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                        device=device)
+    if kind.moe:
+        p["moe"] = moe_init(generator, cfg, dtype, device=device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                            dtype, device=device)
     return p
 
 
 def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None):
     """Decode-cache structure for one block, on ``device`` (``cuda``
-    unless the caller names another): ``{"kv": KVCache}`` for attention,
-    ``{"ssm": MambaState}`` for Mamba (its conv tail is bf16 and h f32
-    whatever ``dtype``, see ``models/mamba.py``)."""
+    unless the caller names another): ``{"kv": KVCache}`` for GQA (a
+    ring of ``min(window, seq_len)`` slots on a sliding-window layer),
+    ``{"kv": MLACache}`` for MLA, ``{"ssm": MambaState}`` for Mamba (its
+    conv tail is bf16 and h f32 whatever ``dtype``, see
+    ``models/mamba.py``)."""
     _supported(kind, cfg)
     if kind.mixer == "mamba":
         return {"ssm": mamba_lib.mamba_state_shape(cfg, batch,
                                                    device=device)}
+    if kind.mixer == "mla":
+        return {"kv": attn_lib.mla_cache_shape(cfg, batch, seq_len, dtype,
+                                               device=device)}
     return {"kv": attn_lib.gqa_cache_shape(cfg, batch, seq_len, dtype,
-                                           device=device)}
+                                           device=device,
+                                           window=kind.window)}
 
 
 def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                 cache=None, pos: Optional[int] = None):
-    """Pre-norm residual block: attention + MLP, or (SSM) Mamba with no
-    second residual. ``mode``: train | prefill | decode. Returns (x,
-    cache, aux_loss); ``cache`` is updated in place (train takes none)."""
+    """Pre-norm residual block: attention (GQA or MLA) + MLP or MoE, or
+    (SSM) Mamba with no second residual. ``mode``: train | prefill |
+    decode. Returns (x, cache, aux_loss) — the MoE layer's load-balance
+    loss, else 0; ``cache`` is updated in place (train takes none)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -145,10 +159,19 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                                      mode=mode)
         return x + y, cache, aux
     kv = cache.get("kv") if cache else None
-    y, _ = attn_lib.gqa_apply(params["attn"], h, cfg=cfg, window=kind.window,
-                              theta=kind.theta, cache=kv, pos=pos, mode=mode,
-                              causal=kind.causal)
+    if kind.mixer == "mla":
+        y, _ = attn_lib.mla_apply(params["attn"], h, cfg=cfg,
+                                  theta=kind.theta, cache=kv, pos=pos,
+                                  mode=mode)
+    else:
+        y, _ = attn_lib.gqa_apply(params["attn"], h, cfg=cfg,
+                                  window=kind.window, theta=kind.theta,
+                                  cache=kv, pos=pos, mode=mode,
+                                  causal=kind.causal)
     x = x + y
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-    x = x + mlp_apply(params["mlp"], h2, cfg.act)
-    return x, cache, aux
+    if kind.moe:
+        y2, aux = moe_ep.moe_dispatch(params["moe"], h2, cfg)
+    else:
+        y2 = mlp_apply(params["mlp"], h2, cfg.act)
+    return x + y2, cache, aux

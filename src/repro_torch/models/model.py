@@ -43,7 +43,7 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
     ``jax.random``: tests that compare the two convert JAX params with
     ``weights.params_from_jax``."""
     device = resolve_device(device)
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.family!r} models are ported with a later slice")
     g = torch.Generator(device=device)
@@ -55,10 +55,22 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
     params["prefix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
                              for kind in plan.prefix)
     if plan.n_periods:
-        per = [{f"sub{j}": blk.block_init(g, cfg, kind, dtype, device=device)
-                for j, kind in enumerate(plan.period)}
-               for _ in range(plan.n_periods)]
-        params["periods"] = tree.tree_map(lambda *xs: torch.stack(xs), *per)
+        # the stacked tensors are allocated once and filled a period at a
+        # time, so the peak is the stack plus one period (a 15.7 B-param
+        # MoE stack fits the card where a list of periods and its stack
+        # would not)
+        stacked = None
+        for i in range(plan.n_periods):
+            one = {f"sub{j}": blk.block_init(g, cfg, kind, dtype,
+                                             device=device)
+                   for j, kind in enumerate(plan.period)}
+            if stacked is None:
+                stacked = tree.tree_map(
+                    lambda a: a.new_empty((plan.n_periods,) + a.shape), one)
+            for dst, src in zip(tree.leaves(stacked), tree.leaves(one)):
+                dst[i].copy_(src)
+            del one
+        params["periods"] = stacked
     params["suffix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
                              for kind in plan.suffix)
     params["final_norm"] = init_rms_scale(cfg.d_model, device=device)

@@ -40,12 +40,14 @@ def params_from_jax(params_np, device=None):
     return tree.tree_map(lambda a: tensor_from_numpy(a, device), params_np)
 
 
-_STATES = {"KVCache": attention.KVCache, "MambaState": mamba.MambaState}
+_STATES = {"KVCache": attention.KVCache, "MLACache": attention.MLACache,
+           "MambaState": mamba.MambaState}
 
 
 def caches_from_jax(caches_np, device=None):
     """The reference's decode caches (numpy leaves) as the port's: the
-    same tree, with each of the reference's ``KVCache`` / ``MambaState``
+    same tree, with each of the reference's ``KVCache`` / ``MLACache`` /
+    ``MambaState``
     rebuilt as the port's class of that name."""
     if isinstance(caches_np, dict):
         return {k: caches_from_jax(v, device) for k, v in caches_np.items()}

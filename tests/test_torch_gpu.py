@@ -40,8 +40,12 @@ def _k1_cases(with_q0):
     """Ragged GQA cases (S = 200, 8/2 heads, hd 128) in both dtypes, then
     the shapes of chip_smoke.py's K1 gates (``K1_SHAPES``, or
     ``K1B_SHAPES`` without q0): GPT-65B and qwen3-4b widths, the bf16
-    kernels' edges (GQA, window and q0 at hd 64, ragged S = 1000), and
-    hd 32 in both dtypes."""
+    kernels' edges (GQA, window and q0 at hd 64, ragged S = 1000), hd 32
+    in both dtypes, and the attention architectures' shapes: gemma3-1b at
+    hd 256 (global, and windowed with S no whole number of windows), f32
+    at hd 256, deepseek-v2-lite's MLA at q/k 192 with v 128 (``hd`` is
+    then the pair), its smoke config's (48, 32) in f32, and the GQA groups
+    of starcoder2 (9), qwen3-moe (16) and phi3 (4)."""
     masks = [(True, None, 0), (False, None, 0),
              (True, 40, 5) if with_q0 else (True, 48, 0)]
     cases = [pytest.param(2, 8, 2, 200, 128, dt, c, w, q0,
@@ -69,6 +73,25 @@ def _k1_cases(with_q0):
         ("bf16-hd32-2048", 1, 16, 16, 2048, 32, "bfloat16", True, None, 0),
         ("gpt-100m-train-256", 16, 12, 12, 256, 64, "bfloat16", True, None,
          0),
+        ("gemma3-1b-global-2048", 1, 4, 1, 2048, 256, "bfloat16", True,
+         None, 0),
+        ("gemma3-1b-local-1000-w512", 1, 4, 1, 1000, 256, "bfloat16", True,
+         512, 0),
+        ("f32-hd256-gqa-ragged-window-q0", 1, 4, 1, 200, 256, "float32",
+         True, 48, 16),
+        ("deepseek-mla-2048", 1, 16, 16, 2048, (192, 128), "bfloat16", True,
+         None, 0),
+        ("deepseek-mla-1000", 1, 16, 16, 1000, (192, 128), "bfloat16", True,
+         None, 0),
+        ("f32-mla-ragged-window-q0", 1, 4, 4, 200, (192, 128), "float32",
+         True, 48, 16),
+        ("deepseek-smoke-mla-f32-48-32", 2, 4, 4, 64, (48, 32), "float32",
+         True, None, 0),
+        ("starcoder2-g9-2048", 1, 36, 4, 2048, 128, "bfloat16", True, None,
+         0),
+        ("qwen3-moe-g16-1024", 1, 64, 4, 1024, 128, "bfloat16", True, None,
+         0),
+        ("phi3-g4-2048", 1, 40, 10, 2048, 128, "bfloat16", True, None, 0),
     ]
     if not with_q0:   # the backward's table: no q0, and two GPT-65B rows
         card = [(c[0].replace("-q0", ""),) + c[1:-1] + (0,) for c in card
@@ -86,10 +109,11 @@ def test_hopper_kernel_matches_plain(B, Hq, Hk, S, hd, dtype, causal, window,
     1e-3; one launch counted per call."""
     _need_card()
     dt = getattr(torch, dtype)
+    hd, hv = hd if isinstance(hd, tuple) else (hd, hd)
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
     k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-    v = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
+    v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     kw = dict(causal=causal, window=window, q0=q0)
     before = fa.fwd_launches
@@ -101,6 +125,46 @@ def test_hopper_kernel_matches_plain(B, Hq, Hk, S, hd, dtype, causal, window,
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert float(rel) <= 1e-2
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,hv,dtype", [(80, 80, "bfloat16"),
+                                         (80, 80, "float32"),
+                                         (48, 32, "bfloat16")])
+def test_kernel_refuses_head_dims_not_instantiated(hd, hv, dtype):
+    """Head dims no config has (80), and bf16 at (48, 32) (no TMA box of
+    the bf16 forward fits its 96-byte rows), raise instead of launching or
+    falling back to the plain version."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 2, 64, hd, device="cuda", dtype=dt)
+    v = torch.zeros(1, 2, 64, hv, device="cuda", dtype=dt)
+    before = fa.fwd_launches
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, q, v)
+    assert fa.fwd_launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "starcoder2-7b",
+                                  "gemma3-1b", "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_smoke_archs_on_the_card_match_the_cpu(arch):
+    """chip_smoke.py's gate (w) for one SMOKE config in f32: the card (K1's
+    kernels) against the same params on the CPU (their plain versions),
+    the loss, each gradient leaf (of its largest element), prefill and 4
+    decode steps' logits within 1e-5."""
+    _need_card()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.ARCHS_SMOKE_TOL == 1e-5
+    failures, gaps = smoke.archs_smoke_parity(torch, print, archs=(arch,))
+    assert not failures, failures
+    assert set(gaps) == {arch}
 
 
 @pytest.mark.gpu
@@ -151,11 +215,12 @@ def test_bwd_kernel_matches_plain_and_is_deterministic(B, Hq, Hk, S, hd,
     same bits on a second launch (no float atomics)."""
     _need_card()
     dt = getattr(torch, dtype)
+    hd, hv = hd if isinstance(hd, tuple) else (hd, hd)
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, do = (torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
-             for _ in range(2))
-    k, v = (torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-            for _ in range(2))
+    q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
+    do = torch.randn(B, Hq, S, hv, device="cuda", generator=g).to(dt)
+    k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
+    v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     kw = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)

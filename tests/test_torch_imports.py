@@ -29,10 +29,11 @@ print(",".join(names), bad)
 
 #: modules the walk must reach: the training side's last slice (the LP
 #: search, reconciliation, the autotuner and the data-parallel engine)
-#: beside the engines they join, and the front door (micro-batching, the
+#: beside the engines they join, the front door (micro-batching, the
 #: in-memory Trainer and its checkpoints, the training CLI, the kernel
 #: benchmark and the six examples), whose scripts parse their arguments
-#: only inside ``main``
+#: only inside ``main``, and the attention architectures (MoE, its
+#: expert-parallel seam and the five configs)
 REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.obs.registry", "repro_torch.offload.autotune",
             "repro_torch.offload.dp", "repro_torch.offload.engine",
@@ -47,7 +48,13 @@ REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.examples.train_dp",
             "repro_torch.examples.lp_config_search",
             "repro_torch.examples.serve_batched",
-            "repro_torch.examples.quickstart"}
+            "repro_torch.examples.quickstart",
+            "repro_torch.models.moe", "repro_torch.models.moe_ep",
+            "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.configs.starcoder2_7b",
+            "repro_torch.configs.gemma3_1b",
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.configs.qwen3_moe_235b_a22b"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():

@@ -299,8 +299,15 @@ def test_allocations_default_to_the_card(monkeypatch, alloc):
         alloc(get_config("gpt-tiny"))
 
 
-def test_unsupported_layers_raise_naming_the_later_slice():
-    windowed = dataclasses.replace(get_config("gpt-tiny"), sliding_window=4,
-                                   global_attn_every=2)
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b",
+                                  "jamba-v0.1-52b"])
+def test_unsupported_layers_raise_naming_the_later_slice(arch):
+    """The families still to port (encoder-decoder, VLM, hybrid): their
+    reference configs' fields, through the port's ArchConfig, raise
+    naming the later slice."""
+    from repro.configs import get_smoke as jget_smoke
+    cfg = _port_cfg(jget_smoke(arch))
     with pytest.raises(NotImplementedError, match="slice"):
-        mdl.init_caches(windowed, 1, 8, device="cpu")
+        mdl.init_caches(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        mdl.init_params(cfg, 0, device="cpu")
