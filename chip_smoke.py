@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tolerance, and timed beside its bound, its plain version and one
    PyTorch library call: K1 forward, K1 backward (also run twice and
    required bit-identical; hd 32, 64, 128 and 256, MLA's q/k 192 with v
-   128 and its smoke config's (48, 32) in f32; hd 80 and bf16 (48, 32)
-   refused; the library call is ``scaled_dot_product_attention`` timed
+   128 and its smoke config's (48, 32); Sq != Skv: whisper-base's
+   cross-attention of 448 decoder tokens, or 1 in decode, against 1500
+   encoder frames, and its smoke config's 16 against 32; hd 80 refused;
+   the library call is ``scaled_dot_product_attention`` timed
    on each backend that takes the inputs, the fastest reported by
    name), K2 fused Adam (also the
    two-stage ``[0,k)`` + ``[k,n)`` launch, required bitwise equal to one
@@ -116,9 +118,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    slot), the last step's logits against a fresh prefill's, K1 launches
    == prefills x 27; (u) deepseek-v2-lite-16b trained at full width, 2
    layers (K1's backward at (192, 128)); (v) qwen3-moe-235b-a22b at full width, 2
-   layers, as (t); (w) the five SMOKE configs in f32 on the card against
-   the CPU (a training step's loss and gradients, prefill and 4 decode
-   steps) within 1e-5.
+   layers, as (t); (w) the seven SMOKE configs (whisper-base's and
+   internvl2-76b's too) in f32 on the card against the CPU (a training
+   step's loss and gradients, prefill and 4 decode steps) within 1e-5;
+   (x) whisper-base at full size (6 + 6 layers, 1500 frames): trained
+   through the CLI in memory (K1 launches derived from the plan: encoder,
+   decoder self- and cross-attention, each under checkpoint), then a
+   prefill of 2 x 4 tokens over 2 x 1500 frames and 32 greedy decode
+   steps (K1 at Sq = 1 against 1500 in 6 layers a step) into caches grown
+   a slot a step, the last step against a fresh prefill within 0.1
+   relative; (y) internvl2-76b at full width (depth 80 -> 2: a prefill of
+   256 image + 768 text positions, 16 decode steps, the same gate; depth
+   1 for the Trainer, 4 steps of 2 x 1024).
 
 Prints every measurement (``serve stats``, ``train stats``, ``dp stats``,
 ``mamba stats``, ``entry stats`` and ``archs stats`` JSON lines, the autotuner's decision
@@ -191,8 +202,8 @@ ENTRY_STEPS = 30
 # bf16 products do; the engine tests' bf16 tolerance (measured on the
 # card: 6.5e-5)
 TRAINER_LOSS_RTOL = 2e-4
-# (name, B, Hq, Hk, S, hd, dtype, causal, window, q0); hd is one head dim
-# or (q/k head dim, v head dim)
+# (name, B, Hq, Hk, S, hd, dtype, causal, window, q0); S is one length
+# or (Sq, Skv), hd one head dim or (q/k head dim, v head dim)
 K1_SHAPES = [
     ("gpt-65b prefill S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None, 0),
     ("gpt-65b prefill S=1024", 1, 64, 64, 1024, 128, "bfloat16", True, None, 0),
@@ -241,19 +252,48 @@ K1_SHAPES = [
      "float32", True, 48, 16),
     ("deepseek-v2-lite-smoke mla f32 (48,32)", 2, 4, 4, 64, (48, 32),
      "float32", True, None, 0),
+    ("deepseek-v2-lite-smoke mla (48,32)", 2, 4, 4, 64, (48, 32),
+     "bfloat16", True, None, 0),
     ("starcoder2-7b S=2048 G=9", 1, 36, 4, 2048, 128, "bfloat16", True, None,
      0),
     ("qwen3-moe S=1024 G=16", 1, 64, 4, 1024, 128, "bfloat16", True, None,
      0),
     ("phi3-medium-14b S=2048 G=4", 1, 40, 10, 2048, 128, "bfloat16", True,
      None, 0),
+    # the encoder-decoder and VLM families (archs phase, gates (x), (y)):
+    # whisper-base's encoder over its 1500 frames (non-causal; 1500 = 11 x
+    # 128 + 92 keys, a ragged last tile), its decoder's causal
+    # self-attention at 448 and cross-attention of 448 decoder tokens
+    # against the 1500 frames (Sq != Skv), decode's cross-attention at
+    # Sq = 1 (one valid row of a 128-row Q tile). In bf16 training the
+    # encoder's activations are f32 (the frame embeddings are, and bf16
+    # weights promote, as in the reference), so the encoder and cross rows
+    # run in f32 on the main path, and in bf16 here too. whisper-base-smoke
+    # (hd 32, F = 32) in f32; internvl2's 64:8 group at hd 128 over 256
+    # image + 768 text tokens
+    ("whisper-base encoder S=1500", 4, 8, 8, 1500, 64, "bfloat16", False,
+     None, 0),
+    ("whisper-base encoder f32 S=1500", 4, 8, 8, 1500, 64, "float32", False,
+     None, 0),
+    ("whisper-base decoder S=448", 4, 8, 8, 448, 64, "bfloat16", True, None,
+     0),
+    ("whisper-base cross Sq=448 Skv=1500", 4, 8, 8, (448, 1500), 64,
+     "bfloat16", False, None, 0),
+    ("whisper-base cross f32 Sq=448 Skv=1500", 4, 8, 8, (448, 1500), 64,
+     "float32", False, None, 0),
+    ("whisper-base decode cross Sq=1 Skv=1500", 2, 8, 8, (1, 1500), 64,
+     "bfloat16", False, None, 0),
+    ("whisper-base-smoke cross f32 Sq=16 Skv=32", 2, 4, 4, (16, 32), 32,
+     "float32", False, None, 0),
+    ("internvl2-76b S=1024 G=8", 1, 64, 8, 1024, 128, "bfloat16", True, None,
+     0),
 ]
 #: (q/k, v) head dims K1 must refuse with ValueError, per dtype
-K1_REFUSED = [((80, 80), "bfloat16"), ((80, 80), "float32"),
-              ((48, 32), "bfloat16")]
+K1_REFUSED = [((80, 80), "bfloat16"), ((80, 80), "float32")]
 HEADLINE = "gpt-65b prefill S=2048"
 
-# K1 backward: (name, B, Hq, Hk, S, hd, dtype, causal, window)
+# K1 backward: (name, B, Hq, Hk, S, hd, dtype, causal, window); S and hd
+# as in K1_SHAPES
 K1B_SHAPES = [
     ("gpt-65b train S=2048", 1, 64, 64, 2048, 128, "bfloat16", True, None),
     ("qwen3-4b gqa S=1024", 1, 32, 8, 1024, 128, "bfloat16", True, None),
@@ -283,10 +323,28 @@ K1B_SHAPES = [
      True, 48),
     ("deepseek-v2-lite-smoke mla f32 (48,32)", 2, 4, 4, 64, (48, 32),
      "float32", True, None),
+    ("deepseek-v2-lite-smoke mla (48,32)", 2, 4, 4, 64, (48, 32),
+     "bfloat16", True, None),
     ("starcoder2-7b S=2048 G=9", 1, 36, 4, 2048, 128, "bfloat16", True,
      None),
     ("qwen3-moe S=1024 G=16", 1, 64, 4, 1024, 128, "bfloat16", True, None),
     ("phi3-medium-14b S=2048 G=4", 1, 40, 10, 2048, 128, "bfloat16", True,
+     None),
+    # the encoder-decoder and VLM families, as in K1_SHAPES (decode has no
+    # backward): the dK/dV pass walks 7 Q tiles of 64 rows over 24 key
+    # tiles, the last holding 1500 - 23 x 64 = 28 keys
+    ("whisper-base encoder S=1500", 4, 8, 8, 1500, 64, "bfloat16", False,
+     None),
+    ("whisper-base encoder f32 S=1500", 4, 8, 8, 1500, 64, "float32", False,
+     None),
+    ("whisper-base decoder S=448", 4, 8, 8, 448, 64, "bfloat16", True, None),
+    ("whisper-base cross Sq=448 Skv=1500", 4, 8, 8, (448, 1500), 64,
+     "bfloat16", False, None),
+    ("whisper-base cross f32 Sq=448 Skv=1500", 4, 8, 8, (448, 1500), 64,
+     "float32", False, None),
+    ("whisper-base-smoke cross f32 Sq=16 Skv=32", 2, 4, 4, (16, 32), 32,
+     "float32", False, None),
+    ("internvl2-76b S=1024 G=8", 1, 64, 8, 1024, 128, "bfloat16", True,
      None),
 ]
 K1B_HEADLINE = "gpt-65b train S=2048"
@@ -423,8 +481,42 @@ DS_TRAIN_LAYERS, DS_TRAIN_STEPS, DS_TRAIN_B, DS_TRAIN_S = 2, 6, 4, 1024
 # every token) are held at this tolerance times their leaf's largest
 # element
 ARCHS_SMOKE_TOL = 1e-5
+# (w) also runs deepseek-v2-lite-smoke in bf16 (its MLA through K1 at
+# q/k 48, v 32 both ways), card against CPU: the training step's loss
+# within the MoE stacks' bf16 tolerance of tests/test_torch_archs.py (a
+# token whose router probabilities tie within bf16 rounding can take
+# another expert on each side); gradients and logits are reported
+ARCHS_SMOKE_BF16 = "deepseek-v2-lite-16b"
+ARCHS_SMOKE_BF16_RTOL = 2e-3
 SMOKE_ARCHS = ("phi3-medium-14b", "starcoder2-7b", "gemma3-1b",
-               "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
+               "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "whisper-base",
+               "internvl2-76b")
+# (x) whisper-base (arXiv:2212.04356) at full size: 6 encoder + 6 decoder
+# layers, d_model 512, 97.3 M params, its published 1500 encoder frames
+# (n_audio_ctx) and 448 decoder positions (n_text_ctx). Trained through
+# the CLI in memory, bf16, 4 x 448 tokens over 4 x 1500 x 512 frame
+# embeddings (f32, as the reference's batches make them, so the encoder
+# computes in f32), M 2, alpha 0.25; served in memory: a prefill of 2 x 4
+# decoder tokens over 2 x 1500 frames, then greedy decode steps into
+# caches grown a slot a step (the cross-attention cache holds the 1500
+# frames' K/V from the prefill)
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_B, WHISPER_TRAIN_S = 6, 4, 448
+WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = 2, 4, 32
+# (y) internvl2-76b (arXiv:2404.16821; its Llama-3-70B-shaped backbone,
+# the InternViT tower stubbed by 256 image embeddings) at full width,
+# depth cut 80 -> 2 for the generation (3.81 B params, 7.6 GB of bf16;
+# the full stack's 70.6 B params do not fit one card): 1 x (256 image +
+# 768 text) prefill, 16 greedy decode steps, grown caches. Trained
+# through the Trainer at 1 layer (2.96 B params), bf16, alpha 0, 4 steps
+# of 2 x 1024 positions, M 2. Memory: bf16 params 5.9 GB, f32 masters +
+# m + v 35.5 GB, bf16 gradients 5.9 GB, the next step's bf16 params 5.9
+# GB and the f32 temporaries of one update piece (the Adam update goes
+# 64 M elements at a time: whole, the 1.05 B-param embedding's took ~7 x
+# 4.2 GB and ran the card out of memory) ~55 GB; at 2 layers the f32
+# state alone is ~46 GB, and alpha > 0 would add an f32 copy of every
+# gradient (11.8 GB)
+VLM_LAYERS, VLM_TEXT, VLM_GEN = 2, 768, 16
+VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_B, VLM_TRAIN_S = 1, 4, 2, 1024
 
 
 def nvidia_smi_line() -> str:
@@ -454,6 +546,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def head_dims(hd):
     """(q/k head dim, v head dim) of a shape row's ``hd``."""
     return tuple(hd) if isinstance(hd, tuple) else (hd, hd)
+
+
+def seq_lens(S):
+    """(Sq, Skv) of a shape row's ``S``."""
+    return tuple(S) if isinstance(S, tuple) else (S, S)
+
+
+def plain_chunks(S):
+    """K1's plain versions' chunk sizes for a row (``fa.plain_chunks``)."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.plain_chunks(*seq_lens(S))
 
 
 def sdpa_backends(torch, q, k, v, causal, window=None):
@@ -500,16 +603,17 @@ def fastest(times: dict):
 def k1_work(B, Hq, Hk, S, hd, dtype, causal, window, q0):
     """(bytes, flops) K1 needs on these inputs: q, k, v read once, out and
     lse written once; 2*(hd_qk + hd_v) FLOP (QK^T and PV) per admitted
-    (query, key) pair, counted for this mask."""
+    (query, key) pair, counted for this mask (top-left at Sq != Skv)."""
     hq, hv = head_dims(hd)
+    sq, skv = seq_lens(S)
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * S * (B * Hq * (hq + hv) + B * Hk * (hq + hv)) \
-        + 4 * B * Hq * S
+    nbytes = item * (B * Hq * sq * (hq + hv) + B * Hk * skv * (hq + hv)) \
+        + 4 * B * Hq * sq
     pairs = 0
-    for i in range(S):
+    for i in range(sq):
         p = q0 + i
         lo = 0 if window is None else max(0, p - window + 1)
-        hi = min(S - 1, p) if causal else S - 1
+        hi = min(skv - 1, p) if causal else skv - 1
         pairs += max(0, hi - lo + 1)
     return nbytes, 2 * (hq + hv) * pairs * B * Hq
 
@@ -535,14 +639,16 @@ def phase_kernels(torch, fa, report):
     for (name, B, Hq, Hk, S, hd, dts, causal, window, q0) in K1_SHAPES:
         dt = getattr(torch, dts)
         hq, hv = head_dims(hd)
+        sq, skv = seq_lens(S)
         g = torch.Generator(device="cuda").manual_seed(len(rows))
-        q = torch.randn(B, Hq, S, hq, device="cuda", generator=g).to(dt)
-        k = torch.randn(B, Hk, S, hq, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
+        q = torch.randn(B, Hq, sq, hq, device="cuda", generator=g).to(dt)
+        k = torch.randn(B, Hk, skv, hq, device="cuda", generator=g).to(dt)
+        v = torch.randn(B, Hk, skv, hv, device="cuda", generator=g).to(dt)
         kw = dict(causal=causal, window=window, q0=q0)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw,
+                                                **plain_chunks(S))
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
         rel_err = (diff.norm() / ref.float().norm()).item()
@@ -551,10 +657,10 @@ def phase_kernels(torch, fa, report):
         ok = (bool(torch.isfinite(out.float()).all())
               and bool((diff <= tol + tol * ref.float().abs()).all())
               and rel_err <= REL_TOL and lse_err <= 1e-3)
-        reps = 20 if S >= 1024 else 50
+        reps = 20 if max(sq, skv) >= 1024 else 50
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), reps)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
-                           max(3, reps // 5), warmup=1)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, **kw, **plain_chunks(S)), max(3, reps // 5), warmup=1)
         lib_ms = backend = None
         lib_all = {}
         if q0 == 0:
@@ -568,8 +674,8 @@ def phase_kernels(torch, fa, report):
         nbytes, flops = k1_work(B, Hq, Hk, S, hd, dts, causal, window, q0)
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS[dts] * 1e3
-        row = {"shape": name, "q": [B, Hq, S, hq], "v_head_dim": hv,
-               "kv_heads": Hk,
+        row = {"shape": name, "q": [B, Hq, sq, hq], "v_head_dim": hv,
+               "kv_heads": Hk, "kv_len": skv,
                "dtype": dts, "causal": causal, "window": window, "q0": q0,
                "max_abs_err": err, "rel_err": rel_err,
                "lse_max_abs_err": lse_err, "tol": TOL[dts],
@@ -598,9 +704,10 @@ def k1_bwd_work(B, Hq, Hk, S, hd, dtype, causal, window):
     admitted pair, of 2*hd_qk FLOP (QK^T, dS K, dS^T Q) or 2*hd_v (dO V^T,
     P^T dO)."""
     hq, hv = head_dims(hd)
+    sq, skv = seq_lens(S)
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * S * (2 * B * Hq * (hq + hv) + 2 * B * Hk * (hq + hv)) \
-        + 4 * B * Hq * S
+    nbytes = item * (2 * B * Hq * sq * (hq + hv) + 2 * B * Hk * skv
+                     * (hq + hv)) + 4 * B * Hq * sq
     _, fwd_flops = k1_work(B, Hq, Hk, S, hd, dtype, causal, window, 0)
     pair_flops = fwd_flops // (2 * (hq + hv))
     return nbytes, pair_flops * 2 * (3 * hq + 2 * hv)
@@ -611,17 +718,19 @@ def phase_k1_bwd(torch, fa, report):
     for (name, B, Hq, Hk, S, hd, dts, causal, window) in K1B_SHAPES:
         dt = getattr(torch, dts)
         hq, hv = head_dims(hd)
+        sq, skv = seq_lens(S)
         g = torch.Generator(device="cuda").manual_seed(100 + len(rows))
-        q = torch.randn(B, Hq, S, hq, device="cuda", generator=g).to(dt)
-        do = torch.randn(B, Hq, S, hv, device="cuda", generator=g).to(dt)
-        k = torch.randn(B, Hk, S, hq, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
+        q = torch.randn(B, Hq, sq, hq, device="cuda", generator=g).to(dt)
+        do = torch.randn(B, Hq, sq, hv, device="cuda", generator=g).to(dt)
+        k = torch.randn(B, Hk, skv, hq, device="cuda", generator=g).to(dt)
+        v = torch.randn(B, Hk, skv, hv, device="cuda", generator=g).to(dt)
         kw = dict(causal=causal, window=window)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         torch.cuda.synchronize()
-        want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw,
+                                            **plain_chunks(S))
         tol = TOL[dts]
         err = rel_err = 0.0
         ok = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -633,11 +742,11 @@ def phase_k1_bwd(torch, fa, report):
             ok = ok and bool(torch.isfinite(a.float()).all()) and bool(
                 (diff <= tol + tol * w.float().abs()).all())
         ok = ok and rel_err <= REL_TOL
-        reps = 5 if S >= 1024 else 20
+        reps = 5 if max(sq, skv) >= 1024 else 20
         ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
                                                     **kw), reps)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, do, lse, **kw), 2, warmup=1)
+            q, k, v, out, do, lse, **kw, **plain_chunks(S)), 2, warmup=1)
         G = Hq // Hk
         qr = q.detach().requires_grad_()
         kr = k.repeat_interleave(G, dim=1).detach().requires_grad_()
@@ -653,8 +762,8 @@ def phase_k1_bwd(torch, fa, report):
         nbytes, flops = k1_bwd_work(B, Hq, Hk, S, hd, dts, causal, window)
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS[dts] * 1e3
-        row = {"shape": name, "q": [B, Hq, S, hq], "v_head_dim": hv,
-               "kv_heads": Hk,
+        row = {"shape": name, "q": [B, Hq, sq, hq], "v_head_dim": hv,
+               "kv_heads": Hk, "kv_len": skv,
                "dtype": dts, "causal": causal, "window": window,
                "max_abs_err": err, "rel_err": rel_err, "tol": tol,
                "rel_tol": REL_TOL, "deterministic": deterministic,
@@ -2315,11 +2424,12 @@ def rel_norm(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def grow_caches(torch, mdl, cfg, caches, n: int):
+def grow_caches(torch, mdl, cfg, caches, n: int, batch: int = MOE_B):
     """Caches of ``n`` slots holding ``caches``' slots (one fewer) in front:
-    each leaf is copied along the one axis where the sizes differ."""
+    each leaf is copied along the one axis where the sizes differ (a
+    cross-attention cache of the encoder's frames is copied whole)."""
     from repro_torch import tree
-    new = mdl.init_caches(cfg, MOE_B, n)
+    new = mdl.init_caches(cfg, batch, n)
     for old, dst in zip(tree.leaves(caches), tree.leaves(new)):
         ax = [i for i, (a, b) in enumerate(zip(old.shape, dst.shape))
               if a != b]
@@ -2450,12 +2560,174 @@ def moe_generate(torch, fa, report, cfg, label):
     return failures, stats
 
 
+def archs_smoke_bf16(torch, fa, report, arch=ARCHS_SMOKE_BF16):
+    """Gate (w) in bf16: ``arch``'s SMOKE config with the same bf16 params
+    on the card and on the CPU: the loss of a training step (2 x 64
+    tokens) within ARCHS_SMOKE_BF16_RTOL relative, its backward run (K1's
+    bf16 kernels both ways on the card), the gradients' and a 2 x 40
+    prefill's relative norm gaps reported. Returns (failures, gaps)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as mdl
+
+    cfg = get_smoke(arch)
+    params = mdl.init_params(cfg, 3, dtype=torch.bfloat16, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    out = {}
+    before = (fa.fwd_launches, fa.bwd_launches)
+    for dev in ("cpu", "cuda"):
+        p = tree.tree_map(lambda a: a.detach().to(dev).requires_grad_(),
+                          params)
+        loss = mdl.loss_fn(p, cfg, {"tokens": toks.to(dev)})
+        loss.backward()
+        grads = torch.cat([t.grad.float().reshape(-1).cpu()
+                           for t in tree.leaves(p)])
+        p = tree.tree_map(lambda a: a.detach(), p)
+        caches = mdl.init_caches(cfg, 2, 48, torch.bfloat16, device=dev)
+        logits, _ = mdl.prefill(p, cfg, {"tokens": toks[:, :40].to(dev)},
+                                caches)
+        out[dev] = (float(loss.detach()), grads, logits.cpu())
+    launches = (fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+    (lc, gc_, xc), (lg, gg, xg) = out["cpu"], out["cuda"]
+    gaps = {"loss_rel": abs(lg - lc) / abs(lc),
+            "grad_rel_norm": rel_norm(gg, gc_),
+            "prefill_logits_rel_norm": rel_norm(xg, xc),
+            "k1_launches": launches}
+    ok = gaps["loss_rel"] <= ARCHS_SMOKE_BF16_RTOL and math.isfinite(lg) \
+        and min(launches) > 0
+    report(f"(w) {arch}-smoke bf16 card vs CPU: loss {lg:.6f} vs {lc:.6f} "
+           f"(rel {gaps['loss_rel']:.3e}, tol {ARCHS_SMOKE_BF16_RTOL}), "
+           f"gradients rel norm {gaps['grad_rel_norm']:.3e}, prefill logits "
+           f"rel norm {gaps['prefill_logits_rel_norm']:.3e}, K1 launches "
+           f"(fwd, bwd) {launches} -> {'OK' if ok else 'FAIL'}")
+    failures = [] if ok else [f"(w) {arch}-smoke bf16 card vs CPU: {gaps}"]
+    return failures, gaps
+
+
+def frontend_batch(torch, cfg, tokens, seed: int = 0) -> dict:
+    """``tokens`` (B, S) on the card with the family's stubbed frontend,
+    as the reference's ``make_batch`` draws it: an encoder-decoder's frame
+    embeddings (B, F, d), a VLM's image embeddings (B, P, d), f32 of
+    standard deviation d^-0.5."""
+    import numpy as np
+    B = tokens.shape[0]
+    rng = np.random.default_rng(seed)
+    n = {"encdec": cfg.encoder_seq, "vlm": cfg.frontend_tokens}.get(
+        cfg.family)
+    out = {"tokens": tokens}
+    if n:
+        emb = rng.standard_normal((B, n, cfg.d_model)).astype(np.float32)
+        key = "enc_embeds" if cfg.family == "encdec" else "image_embeds"
+        out[key] = torch.from_numpy(emb * cfg.d_model ** -0.5).to("cuda")
+    return out
+
+
+def frontend_generate(torch, fa, report, cfg, label, B, S, gen,
+                      k1_per_prefill, k1_per_step):
+    """``cfg`` (an encoder-decoder or a VLM) in bf16 on the card, random
+    weights: a prefill of B x S decoder tokens behind the family's
+    frontend (frames through the encoder, or the image prefix), ``gen``
+    greedy ``decode_step``s into caches grown one slot a step (no step
+    sees an empty slot; each step timed alone, the growth not), and a
+    fresh prefill over prompt + generated tokens with the same frontend.
+    Returns (failures, stats): K1 launches == 2 prefills x
+    ``k1_per_prefill`` + gen x ``k1_per_step``, the last decode step's
+    logits within LAST_STEP_REL_TOL of the fresh prefill's last logits."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as mdl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    prompt = torch.from_numpy(SyntheticLM(cfg.vocab_size, seed=0).batch(
+        B, S)).long().to("cuda")
+    batch = frontend_batch(torch, cfg, prompt)
+    P = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    fa.fwd_launches = 0                          # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = mdl.init_caches(cfg, B, P + S)
+    logits, caches = mdl.prefill(params, cfg, batch, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, step_s = [torch.argmax(logits, dim=-1)], []
+    for i in range(gen):
+        caches = grow_caches(torch, mdl, cfg, caches, P + S + i + 1, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = mdl.decode_step(params, cfg, toks[-1][:, None],
+                                         P + S + i, caches)
+        toks.append(torch.argmax(logits, dim=-1))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    last = logits
+    full = torch.cat([prompt] + [t[:, None] for t in toks[:-1]], dim=1)
+    fresh = mdl.init_caches(cfg, B, P + full.shape[1])
+    want, _ = mdl.prefill(params, cfg, dict(batch, tokens=full), fresh)
+    torch.cuda.synchronize()
+    launches = fa.fwd_launches                   # main path ends here
+    want_launches = 2 * k1_per_prefill + gen * k1_per_step
+    peak = torch.cuda.max_memory_allocated()
+    rel = rel_norm(last, want)
+    top1 = float((last.argmax(-1) == want.argmax(-1)).float().mean())
+    failures = []
+    finite = bool(torch.isfinite(last).all()) and bool(
+        torch.isfinite(want).all())
+    if not finite or rel > LAST_STEP_REL_TOL:
+        failures.append(f"({label}) {cfg.name}: last decode step vs fresh "
+                        f"prefill rel {rel} (tol {LAST_STEP_REL_TOL}), "
+                        f"finite {finite}")
+    if launches != want_launches:
+        failures.append(f"({label}) {cfg.name}: K1 launches {launches} != "
+                        f"{want_launches}")
+    decode_tps = B * gen / sum(step_s)
+    median_ms = 1e3 * sorted(step_s)[len(step_s) // 2]
+    stats = {"model": cfg.name, "layers": cfg.num_layers,
+             "encoder_layers": cfg.encoder_layers, "params": n_params,
+             "init_s": init_s, "batch": B, "prompt": S, "frontend":
+                 cfg.encoder_seq if cfg.family == "encdec" else P,
+             "prefill_s": prefill_s, "decode_step_s": step_s,
+             "decode_tokens_per_s": decode_tps,
+             "decode_step_ms_median": median_ms, "last_step_rel": rel,
+             "last_step_top1_agree": top1, "k1_launches": launches,
+             "k1_launches_want": want_launches, "max_memory_allocated": peak}
+    report(f"({label}) {cfg.name} ({cfg.num_layers} layers"
+           + (f" + {cfg.encoder_layers} encoder over {cfg.encoder_seq} "
+              f"frames" if cfg.family == "encdec" else
+              f" behind {P} image positions")
+           + f", {n_params / 1e9:.3f} B params, bf16, init {init_s:.1f} s): "
+           f"prefill {B} x {S} in {prefill_s:.3f} s, decode {gen} steps "
+           f"{decode_tps:.1f} tokens/s (median step {median_ms:.2f} ms, "
+           f"each timed alone), last step vs fresh prefill rel {rel:.4f} "
+           f"(tol {LAST_STEP_REL_TOL}), top-1 agree {top1}, K1 launches "
+           f"{launches} (want {want_launches}), max_memory_allocated "
+           f"{peak / 2**30:.2f} GiB -> {'OK' if not failures else 'FAIL'}")
+    del params, caches, fresh, logits, want, last, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, stats
+
+
 def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
     """Gate (w): the SMOKE configs of ``archs`` in f32, the same params on
     the card and on the CPU: a training step's loss and gradients
     (``loss_fn`` + backward, 2 x 64 tokens), then prefill of 2 x 40 tokens
-    and 4 decode steps' logits, each within ARCHS_SMOKE_TOL. Returns
-    (failures, gaps by arch)."""
+    and 4 decode steps' logits, each within ARCHS_SMOKE_TOL. An
+    encoder-decoder's batch adds its frame embeddings (the encoder, and
+    cross-attention at Sq != Skv and, in decode, at Sq = 1), a VLM's its
+    image prefix (decode positions follow it). Returns (failures, gaps by
+    arch)."""
     import numpy as np
 
     from repro_torch import tree
@@ -2468,21 +2740,32 @@ def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
         params = mdl.init_params(cfg, 3, dtype=torch.float32, device="cpu")
         rng = np.random.default_rng(0)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        extra, P = {}, 0
+        if cfg.family == "encdec":
+            extra["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        elif cfg.family == "vlm":
+            P = cfg.frontend_tokens
+            extra["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, P, cfg.d_model)).astype(np.float32))
         out = {}
         for dev in ("cpu", "cuda"):
+            ex = {k: v.to(dev) for k, v in extra.items()}
             p = tree.tree_map(
                 lambda a: a.detach().to(dev).requires_grad_(), params)
-            loss = mdl.loss_fn(p, cfg, {"tokens": toks.to(dev)})
+            loss = mdl.loss_fn(p, cfg, {"tokens": toks.to(dev), **ex})
             loss.backward()
             grads = [t.grad.cpu() for t in tree.leaves(p)]
             p = tree.tree_map(lambda a: a.detach(), p)
-            caches = mdl.init_caches(cfg, 2, 48, torch.float32, device=dev)
+            caches = mdl.init_caches(cfg, 2, P + 48, torch.float32,
+                                     device=dev)
             logits, caches = mdl.prefill(
-                p, cfg, {"tokens": toks[:, :40].to(dev)}, caches)
+                p, cfg, {"tokens": toks[:, :40].to(dev), **ex}, caches)
             seq = [logits.cpu()]
             for i in range(4):
                 logits, caches = mdl.decode_step(
-                    p, cfg, toks[:, 40 + i:41 + i].to(dev), 40 + i, caches)
+                    p, cfg, toks[:, 40 + i:41 + i].to(dev), P + 40 + i,
+                    caches)
                 seq.append(logits.cpu())
             out[dev] = (float(loss.detach()), grads, seq)
         (lc, gc_, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
@@ -2635,13 +2918,177 @@ def phase_archs(torch, fa, report, workroot):
     failures += f
     wall["v"] = time.perf_counter() - t0
 
-    # (w) the five SMOKE configs, f32, card against CPU
+    # (w) the seven SMOKE configs, f32, card against CPU; deepseek's in bf16
     t0 = time.perf_counter()
     f, stats["smoke_card_vs_cpu"] = archs_smoke_parity(torch, report)
     failures += f
+    f, stats["smoke_card_vs_cpu_bf16"] = archs_smoke_bf16(torch, fa, report)
+    failures += f
     wall["w"] = time.perf_counter() - t0
+
+    # (x) whisper-base at full size: trained through the CLI, served
+    t0 = time.perf_counter()
+    f, stats["whisper"] = whisper_gates(torch, fa, report)
+    failures += f
+    wall["x"] = time.perf_counter() - t0
+
+    # (y) internvl2-76b at full width, depth cut
+    t0 = time.perf_counter()
+    f, stats["internvl2"] = internvl2_gates(torch, fa, report)
+    failures += f
+    wall["y"] = time.perf_counter() - t0
     stats["gate_wall_s"] = wall
     return failures, stats
+
+
+def whisper_gates(torch, fa, report):
+    """Gate (x), whisper-base at full size. Training through the CLI in
+    memory (``WHISPER_TRAIN_STEPS`` steps of ``WHISPER_TRAIN_B`` x
+    ``WHISPER_TRAIN_S`` tokens over as many 1500-frame embeddings, M 2,
+    alpha 0.25, the vertical schedule: one forward and backward of the
+    whole batch a step). K1 launches, derived from the plan: every
+    encoder block (6, non-causal self-attention over the 1500 frames) and
+    every decoder block (6, causal self-attention and cross-attention of
+    the 448 tokens against the 1500 frames) runs under checkpoint, so
+    each of the 6 + 2 x 6 = 18 attentions launches K1's forward twice a
+    step (the forward, the recomputation) and its backward once: 36 and
+    18 a step. Gates: those counts, finite losses whose last is below the
+    first. Then the generation (``frontend_generate``): a prefill of
+    ``WHISPER_B`` x ``WHISPER_PROMPT`` tokens over the frames (18 K1
+    launches: the encoder's 6, the decoder's 6 self and 6 cross), then
+    ``WHISPER_GEN`` greedy decode steps (6 a step: cross-attention at
+    Sq = 1 against the cached 1500 frames; self-attention decodes without
+    K1), and a fresh prefill. Returns (failures, stats)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+
+    cfg = get_config("whisper-base")
+    L, E = cfg.num_layers, cfg.encoder_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = 0        # main path starts here
+    out = cli.main(["--arch", "whisper-base", "--steps",
+                    str(WHISPER_TRAIN_STEPS), "--batch", str(WHISPER_TRAIN_B),
+                    "--seq", str(WHISPER_TRAIN_S), "--microbatches", "2",
+                    "--alpha", "0.25"])
+    torch.cuda.synchronize()
+    launches = (fa.fwd_launches, fa.bwd_launches)  # main path ends here
+    n_att = E + 2 * L
+    want = (2 * n_att * WHISPER_TRAIN_STEPS, n_att * WHISPER_TRAIN_STEPS)
+    losses = out["losses"]
+    failures = []
+    ok = (launches == want and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0])
+    if not ok:
+        failures.append(f"(x) whisper-base CLI: launches {launches} != "
+                        f"{want} or losses not finite and falling: {losses}")
+    train = {"steps": WHISPER_TRAIN_STEPS, "batch": WHISPER_TRAIN_B,
+             "seq_len": WHISPER_TRAIN_S, "frames": cfg.encoder_seq,
+             "micro_batches": 2, "alpha": 0.25, "losses": losses,
+             "s_per_step": 1.0 / out["steps_per_s"],
+             "tokens_per_s": out["tokens_per_s"],
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1]}}
+    report(f"(x) {cfg.name} CLI in memory ({E} + {L} layers, d_model "
+           f"{cfg.d_model}, {cfg.encoder_seq} frames), bf16, "
+           f"{WHISPER_TRAIN_STEPS} steps of {WHISPER_TRAIN_B} x "
+           f"{WHISPER_TRAIN_S}, M 2, alpha 0.25: "
+           f"{train['s_per_step']:.4f} s/step, "
+           f"{out['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} -> "
+           f"{losses[-1]:.4f}, K1 launches (fwd, bwd) {launches} (want "
+           f"{want}), max_memory_allocated "
+           f"{train['max_memory_allocated'] / 2**30:.2f} GiB -> "
+           f"{'OK' if ok else 'FAIL'}")
+    f, gen = frontend_generate(torch, fa, report, cfg, "x", WHISPER_B,
+                               WHISPER_PROMPT, WHISPER_GEN, n_att, L)
+    return failures + f, {"train": train, "generate": gen}
+
+
+def internvl2_gates(torch, fa, report):
+    """Gate (y), internvl2-76b at full width: the generation
+    (``frontend_generate``) at ``VLM_LAYERS`` layers, 1 x (256 image +
+    ``VLM_TEXT`` text) positions, ``VLM_GEN`` decode steps (K1 once a
+    layer a prefill, causal at hd 128 with 64 q heads on 8 KV heads;
+    decode attends without K1); then the Trainer at ``VLM_TRAIN_LAYERS``
+    layer, ``VLM_TRAIN_STEPS`` steps of ``VLM_TRAIN_B`` x ``VLM_TRAIN_S``
+    positions (256 image + 768 text), M 2, alpha 0, lr 1e-4: K1 forward
+    twice and backward once a layer a step, finite losses, and the first
+    batch's loss under the trained params below its step-1 loss (each
+    step draws a fresh batch and fresh image embeddings, so step losses
+    alone are no gate at 4 steps; at lr 1e-3 the step losses ran 12.169,
+    12.172, 12.114, 12.243 on an H100: the first Adam steps move each of
+    the 8192 inputs of a logit by ~lr). Returns (failures, stats)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import ScheduleConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import Trainer
+
+    full = get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    f, gen = frontend_generate(torch, fa, report, cfg, "y", 1, VLM_TEXT,
+                               VLM_GEN, VLM_LAYERS, 0)
+    failures = list(f)
+    cfg = dataclasses.replace(full, num_layers=VLM_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ScheduleConfig(num_microbatches=2), AdamConfig(lr=1e-4))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(tr.params))
+    fa.fwd_launches = fa.bwd_launches = 0        # main path starts here
+    rep = tr.run(VLM_TRAIN_STEPS, VLM_TRAIN_B, VLM_TRAIN_S, log_every=0)
+    torch.cuda.synchronize()
+    launches = (fa.fwd_launches, fa.bwd_launches)  # main path ends here
+    want = (2 * VLM_TRAIN_LAYERS * VLM_TRAIN_STEPS,
+            VLM_TRAIN_LAYERS * VLM_TRAIN_STEPS)
+    losses = rep.losses
+    # the Trainer's first batch again (its data stream from the start)
+    first = make_batch(cfg, VLM_TRAIN_B, VLM_TRAIN_S, seed=1,
+                       data=SyntheticLM(cfg.vocab_size, seed=0))
+    with torch.no_grad():
+        refit = float(mdl.loss_fn(tr.params, cfg, {
+            k: torch.from_numpy(v).to("cuda") for k, v in first.items()}))
+    ok = (launches == want and all(map(math.isfinite, losses))
+          and refit < losses[0])
+    if not ok:
+        failures.append(f"(y) internvl2-76b Trainer: launches {launches} != "
+                        f"{want}, losses not finite {losses}, or the first "
+                        f"batch's loss {refit} not below {losses[0]}")
+    train = {"layers": VLM_TRAIN_LAYERS, "params": n_params,
+             "init_s": init_s, "steps": VLM_TRAIN_STEPS,
+             "batch": VLM_TRAIN_B, "seq_len": VLM_TRAIN_S,
+             "image_positions": cfg.frontend_tokens, "losses": losses,
+             "first_batch_loss_trained": refit,
+             "s_per_step": (1.0 / rep.steps_per_s if rep.steps_per_s
+                            else None),
+             "tokens_per_s": rep.tokens_per_s,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "launches": {"k1_fwd": launches[0], "k1_bwd": launches[1]}}
+    report(f"(y) {full.name} Trainer, full width, depth cut "
+           f"{full.num_layers} -> {VLM_TRAIN_LAYERS} ({n_params / 1e9:.3f} B "
+           f"params), bf16, {VLM_TRAIN_STEPS} steps of {VLM_TRAIN_B} x "
+           f"{VLM_TRAIN_S} ({cfg.frontend_tokens} image + "
+           f"{VLM_TRAIN_S - cfg.frontend_tokens} text), M 2, alpha 0: "
+           f"{rep.tokens_per_s:.0f} tokens/s, loss {losses[0]:.4f} -> "
+           f"{losses[-1]:.4f}, the first batch's {losses[0]:.4f} -> "
+           f"{refit:.4f}, K1 launches (fwd, bwd) {launches} (want "
+           f"{want}), max_memory_allocated "
+           f"{train['max_memory_allocated'] / 2**30:.2f} GiB -> "
+           f"{'OK' if ok else 'FAIL'}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, {"generate": gen, "train": train}
 
 
 def _kernel_entry(name, source, replaces, launches, rows, headline,
@@ -2899,7 +3346,9 @@ def main() -> int:
     to = estats.get("cli_offload", {}).get("launches", {})
     tg = astats.get("train_gemma3", {}).get("launches", {})
     tq = astats.get("train_deepseek", {}).get("launches", {})
-    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq))
+    tw = astats.get("whisper", {}).get("train", {}).get("launches", {})
+    tv = astats.get("internvl2", {}).get("train", {}).get("launches", {})
+    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq, tw, tv))
           for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
     arch_k1 = {"archs_serve_gemma3": astats.get("serve_gemma3", {}).get(
@@ -2907,7 +3356,11 @@ def main() -> int:
                "archs_generate_deepseek": astats.get(
                    "generate_deepseek", {}).get("k1_launches", 0),
                "archs_generate_qwen3_moe": astats.get(
-                   "generate_qwen3_moe", {}).get("k1_launches", 0)}
+                   "generate_qwen3_moe", {}).get("k1_launches", 0),
+               "archs_generate_whisper": astats.get("whisper", {}).get(
+                   "generate", {}).get("k1_launches", 0),
+               "archs_generate_internvl2": astats.get("internvl2", {}).get(
+                   "generate", {}).get("k1_launches", 0)}
     kernels = [
         _kernel_entry("K1 flash_attention_fwd",
                       "src/repro_torch/csrc/flash_attention_fwd.cu",
@@ -2918,6 +3371,8 @@ def main() -> int:
                           "serve": serve_k1, **arch_k1,
                           "archs_train_gemma3": tg.get("k1_fwd", 0),
                           "archs_train_deepseek": tq.get("k1_fwd", 0),
+                          "archs_train_whisper": tw.get("k1_fwd", 0),
+                          "archs_train_internvl2": tv.get("k1_fwd", 0),
                           "train_recompute": tr.get("k1_fwd", 0),
                           "train_spill": ts.get("k1_fwd", 0),
                           "train_dp": td.get("k1_fwd", 0),
@@ -2934,7 +3389,9 @@ def main() -> int:
                           "entry_cli": te.get("k1_bwd", 0),
                           "entry_cli_offload": to.get("k1_bwd", 0),
                           "archs_train_gemma3": tg.get("k1_bwd", 0),
-                          "archs_train_deepseek": tq.get("k1_bwd", 0)}),
+                          "archs_train_deepseek": tq.get("k1_bwd", 0),
+                          "archs_train_whisper": tw.get("k1_bwd", 0),
+                          "archs_train_internvl2": tv.get("k1_bwd", 0)}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl["k2"], arows, K2_HEADLINE, smi,

@@ -2,8 +2,9 @@
 
 The architectures the port's slices run: dense stacks of GQA attention
 + MLP (global, or gemma3's 5:1 sliding-window:global), the MoE stacks
-(deepseek-v2-lite's MLA + shared experts, qwen3-moe), and the pure-Mamba
-falcon-mamba-7b; the dataclass and the configs themselves are copies of
+(deepseek-v2-lite's MLA + shared experts, qwen3-moe), the pure-Mamba
+falcon-mamba-7b, the encoder-decoder whisper-base and the VLM backbone
+internvl2-76b; the dataclass and the configs themselves are copies of
 the reference's.
 """
 from __future__ import annotations
@@ -28,6 +29,8 @@ _MODULES = {
                              "CONFIG"),
     "qwen3-moe-235b-a22b": ("repro_torch.configs.qwen3_moe_235b_a22b",
                             "CONFIG"),
+    "whisper-base": ("repro_torch.configs.whisper_base", "CONFIG"),
+    "internvl2-76b": ("repro_torch.configs.internvl2_76b", "CONFIG"),
 }
 
 
@@ -37,9 +40,9 @@ def _entry(name: str):
     except KeyError:
         raise KeyError(
             f"{name!r} is not an architecture of the port (it has "
-            f"{sorted(_MODULES)}); the other architectures of the "
-            "reference (encoder-decoder, VLM, hybrid) come with later "
-            "slices (ROADMAP.md, section 1, item 5)") from None
+            f"{sorted(_MODULES)}); the reference's hybrid family "
+            "(jamba-v0.1-52b) comes with a later slice (ROADMAP.md, "
+            "section 1, item 6)") from None
 
 
 def get_config(name: str) -> ArchConfig:

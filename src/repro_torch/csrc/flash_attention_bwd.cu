@@ -66,6 +66,10 @@
 //   hd 32:  the hd 64 tiling with two k16 steps along hd and rows of 40
 //           bf16 (80 bytes: the 8 rows of an `ldmatrix` still fall in 8
 //           distinct 16-byte bank groups), 4 16-byte copies a row.
+//   (48, 32) (MLA at SMOKE size): q/k rows of 56 bf16 (112 bytes, again
+//           8 distinct bank groups), 6 16-byte copies a row, three k16
+//           steps along q/k (columns 0-47, none past the row), dK and dQ
+//           as three n16 column pairs; v rows as at hd 32.
 // Per step a dK/dV warp at hd 128 keeps 128 f32 accumulators (dK and dV
 // for 16 keys) and 32 for S^T and dP^T; the 32-row step is what keeps
 // that without a spill.
@@ -943,6 +947,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   K1B_CASE(1, 128, 128, launch_bf16)
   K1B_CASE(1, 256, 256, launch_bf16)
   K1B_CASE(1, 192, 128, launch_bf16)
+  K1B_CASE(1, 48, 32, launch_bf16)
 #undef K1B_CASE
   return (int)cudaErrorInvalidValue;
 }

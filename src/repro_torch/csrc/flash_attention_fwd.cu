@@ -4,7 +4,7 @@
 // src/repro/kernels/flash_attention.py, and computes the function of the
 // model's chunked jnp form `_flash_fwd_impl` (src/repro/models/attention.py):
 // q (B,Hq,Sq,hd), k (B,Hk,Skv,hd), v (B,Hk,Skv,hdv) -- hdv = hd except for
-// MLA (q/k 192 with v 128; f32 also 48 with 32); GQA with q head h reading KV head
+// MLA (q/k 192 with v 128, and 48 with 32 at SMOKE size); GQA with q head h reading KV head
 // h / (Hq/Hk); top-left causal mask shifted by q0 (query row i sits at
 // position q0 + i); optional sliding window (q_pos - kv_pos < window);
 // masked scores are -1e30, the denominator is clamped at 1e-30; `out` in
@@ -65,6 +65,10 @@
 //   of Q + 2 stages x (32 KB K + 32 KB V) = 192 KB of shared memory.
 //   (192, 128) (MLA): Q K^T over three boxes, P V as at hd 128, tiles of
 //   128 keys: 48 KB of Q + 2 x (48 KB K + 32 KB V) = 208 KB.
+//   (48, 32) (MLA at SMOKE size): a 96-byte q/k row fits no swizzle span,
+//   so it is two 32-column boxes under the 64-byte swizzle, the second
+//   half past the row (TMA zero-fills it, its k16 step is skipped): three
+//   k16 steps of Q K^T, P V as at hd 32.
 // Later work: `setmaxnreg` to move registers from the producer to the
 // consumers, ping-pong scheduling of the two consumer warpgroups (one's
 // softmax under the other's products), overlap of the next S product with
@@ -116,15 +120,17 @@ constexpr int W_THREADS = 2 * 128 + 32;  // two consumer warpgroups + producer
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// A box is BOX bf16 columns of SW bytes, the span of its swizzle: 64
+// A box is COLS bf16 columns of SW bytes, the span of its swizzle: 64
 // columns under the 128-byte swizzle (hd 64 to 256: hd / 64 boxes a row),
-// or hd 32's whole 64-byte row under the 64-byte swizzle. Q and K rows
-// have HQK columns, V rows HV.
+// or 32 under the 64-byte swizzle (hd 32: one box; hd 48: two, the second
+// reaching past the row's end, where TMA fills the columns 48-63 with
+// zeros and Q K^T skips their k16 step). Q and K rows have HQK columns,
+// V rows HV.
 template <int HD>
 struct Box {
-  static constexpr int COLS = HD < 64 ? HD : 64;  // bf16 columns of a box
+  static constexpr int COLS = HD < 64 ? 32 : 64;  // bf16 columns of a box
   static constexpr int SW = 2 * COLS;             // bytes of a swizzled row
-  static constexpr int N = HD / COLS;             // boxes per row
+  static constexpr int N = (HD + COLS - 1) / COLS;  // boxes per row
 };
 
 template <int HQK, int HV>
@@ -443,11 +449,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int x = 0; x < L::BQK::N; ++x)
 #pragma unroll
       for (int kk = 0; kk < L::BQK::COLS / 16; ++kk)
-        wgmma_qk<WK>(
-            sacc,
-            sw_desc<SWQ>(q_s + x * WQ * SWQ + wg * 64 * SWQ + kk * 32, 0),
-            sw_desc<SWQ>(k_s + st * L::K_BYTES + x * WK * SWQ + kk * 32, 0),
-            (x | kk) != 0);
+        if (x * L::BQK::COLS + kk * 16 < HQK)  // no step past the row
+          wgmma_qk<WK>(
+              sacc,
+              sw_desc<SWQ>(q_s + x * WQ * SWQ + wg * 64 * SWQ + kk * 32, 0),
+              sw_desc<SWQ>(k_s + st * L::K_BYTES + x * WK * SWQ + kk * 32,
+                           0),
+              (x | kk) != 0);
     wg_commit();
     wg_wait0();
     fence_regs<WK / 2>(sacc);
@@ -771,8 +779,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16; hd is q's and k's head dim, hdv v's
 // (and the output's). The instantiated (dtype, hd, hdv): both dtypes at
-// (32, 32), (64, 64), (128, 128), (256, 256) and (192, 128); f32 also at
-// (48, 32). window < 0 means no window. Returns cudaGetLastError() after
+// (32, 32), (64, 64), (128, 128), (256, 256), (192, 128) and (48, 32).
+// window < 0 means no window. Returns cudaGetLastError() after
 // the launch (0 = launched), cudaErrorInvalidValue for any other shape.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse, int B,
@@ -797,6 +805,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   K1_CASE(1, 128, 128, launch_bf16)
   K1_CASE(1, 256, 256, launch_bf16)
   K1_CASE(1, 192, 128, launch_bf16)
+  K1_CASE(1, 48, 32, launch_bf16)
 #undef K1_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -68,6 +68,18 @@ def _choose_chunk(s: int, target: int) -> int:
     return max(c, 1)
 
 
+def plain_chunks(sq: int, skv: int) -> dict:
+    """``q_chunk`` / ``kv_chunk`` for the plain versions when they time or
+    check a kernel on the card: the reference's rule (halve 512 / 1024
+    until the length divides) except where it falls below 64 rows (1500
+    -> 4, 1000 -> 8), where the whole length is one chunk (the same
+    function, without thousands of launches)."""
+    def pick(n, target):
+        c = _choose_chunk(n, target)
+        return n if c < min(n, 64) else c
+    return dict(q_chunk=pick(sq, 512), kv_chunk=pick(skv, 1024))
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None, q0: int = 0,
                           scale: Optional[float] = None, q_chunk: int = 512,
@@ -119,12 +131,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the (q/k head dim, v head dim) pairs the kernels are instantiated for,
 #: in both directions, per dtype: the models' head dims (32 to 256), MLA
-#: at (192, 128), and deepseek-v2-lite-smoke's MLA (48, 32) in f32 only
-#: (its 96-byte rows fit no TMA swizzle box of the bf16 forward)
-PAIRS = {torch.float32: ((32, 32), (64, 64), (128, 128), (256, 256),
-                         (192, 128), (48, 32)),
-         torch.bfloat16: ((32, 32), (64, 64), (128, 128), (256, 256),
-                          (192, 128))}
+#: at (192, 128) and deepseek-v2-lite-smoke's MLA at (48, 32)
+_HEAD_PAIRS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+               (48, 32))
+PAIRS = {torch.float32: _HEAD_PAIRS, torch.bfloat16: _HEAD_PAIRS}
 _fn = None
 
 

@@ -32,7 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import (apply_rope, dense_init,
-                                       init_rms_scale, rms_norm)
+                                       init_rms_scale, matmul, rms_norm)
 
 _NEG_INF = -1e30
 
@@ -41,12 +41,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q0: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Hq,Sq,hd); k: (B,Hk,Skv,hd); v: (B,Hk,Skv,hdv). Returns
-    (B,Hq,Sq,hdv).
+    (B,Hq,Sq,hdv) in q's dtype.
 
     GQA is handled by grouping Hq into Hk groups (no K/V repeat).
-    Differentiable: the backward is K1's."""
-    return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal, window, q0, scale)
+    Differentiable: the backward is K1's. Inputs of two types (a bf16
+    decoder's queries against an encoder's f32 keys) run K1 in the wider
+    one, as the reference's f32 attention math does."""
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    out = fa.FlashAttention.apply(q.to(dt).contiguous(),
+                                  k.to(dt).contiguous(),
+                                  v.to(dt).contiguous(), causal, window, q0,
+                                  scale)
+    return out.to(q.dtype)
 
 
 def banded_attention(q, k, v, *, window: int,
@@ -152,9 +158,9 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
                          "or decode")
     B, S, d = x.shape
     Hq, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, Hq, hd)
-    k = (x @ params["wk"]).reshape(B, S, Hk, hd)
-    v = (x @ params["wv"]).reshape(B, S, Hk, hd)
+    q = matmul(x, params["wq"]).reshape(B, S, Hq, hd)
+    k = matmul(x, params["wk"]).reshape(B, S, Hk, hd)
+    v = matmul(x, params["wv"]).reshape(B, S, Hk, hd)
     if cfg.use_qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -199,7 +205,7 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
             cache.slot_pos[start:start + keep] = torch.arange(
                 S - keep, S, dtype=torch.int32, device=x.device)
     o = o.transpose(1, 2).reshape(B, S, Hq * hd)
-    return (o @ params["wo"]).to(x.dtype), cache
+    return matmul(o, params["wo"]).to(x.dtype), cache
 
 
 def gqa_cache_shape(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,

@@ -5,10 +5,11 @@ in the reference, so parameter and cache trees have the same layout
 (period parameters stacked along a leading axis) and convert leaf by
 leaf. The port runs the period with a Python loop where the reference
 runs ``lax.scan``. Blocks here are GQA (global or sliding-window) or MLA
-attention followed by an MLP or an MoE layer (dense and MoE stacks), and
+attention followed by an MLP or an MoE layer (dense, MoE and VLM
+stacks; an encoder-decoder's encoder blocks are non-causal GQA + MLP, its
+decoder blocks add cross-attention against the encoder's output), and
 the pure-SSM Mamba block (``family == "ssm"``: norm + Mamba, no FFN);
-cross-attention (encoder-decoder), VLM and hybrid (Jamba) stacks come
-with later slices.
+hybrid (Jamba) stacks come with a later slice.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe_ep
 from repro_torch.models.moe import moe_init
-from repro_torch.models.common import init_rms_scale, rms_norm
+from repro_torch.models.common import init_rms_scale, matmul, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
@@ -95,14 +96,16 @@ def _supported(kind: LayerKind, cfg):
     if cfg.family == "ssm":
         if kind.mixer == "mamba" and not kind.moe:
             return
-    elif (cfg.family in ("dense", "moe") and kind.mixer in ("attn", "mla")
-          and not kind.cross):
+    elif (cfg.family in ("dense", "moe", "vlm", "encdec")
+          and kind.mixer in ("attn", "mla")
+          and (not kind.cross or cfg.family == "encdec")):
         return
     raise NotImplementedError(
         f"{kind} blocks ({cfg.family}) are ported with a later slice: "
-        "cross-attention (encoder-decoder) and VLM stacks, then hybrid "
-        "(Jamba) stacks; the port runs dense and MoE attention stacks "
-        "(GQA, sliding-window, MLA) and pure-SSM Mamba blocks")
+        "hybrid (Jamba) stacks; the port runs dense, MoE and VLM attention "
+        "stacks (GQA, sliding-window, MLA), encoder-decoder stacks (a "
+        "non-causal encoder, a decoder with cross-attention) and pure-SSM "
+        "Mamba blocks")
 
 
 def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
@@ -115,6 +118,9 @@ def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
         return p  # pure-mamba block: no separate FFN
     init = attn_lib.mla_init if kind.mixer == "mla" else attn_lib.gqa_init
     p["attn"] = init(generator, cfg, dtype, device=device)
+    if kind.cross:
+        p["norm_cross"] = init_rms_scale(cfg.d_model, device=device)
+        p["cross"] = attn_lib.gqa_init(generator, cfg, dtype, device=device)
     p["norm2"] = init_rms_scale(cfg.d_model, device=device)
     if kind.moe:
         p["moe"] = moe_init(generator, cfg, dtype, device=device)
@@ -131,7 +137,9 @@ def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
     ring of ``min(window, seq_len)`` slots on a sliding-window layer),
     ``{"kv": MLACache}`` for MLA, ``{"ssm": MambaState}`` for Mamba (its
     conv tail is bf16 and h f32 whatever ``dtype``, see
-    ``models/mamba.py``)."""
+    ``models/mamba.py``); a decoder block with cross-attention adds
+    ``"cross_kv"``, a KVCache of the encoder's ``encoder_seq`` frames
+    (prefill writes the encoder's K/V into it, decode reads it)."""
     _supported(kind, cfg)
     if kind.mixer == "mamba":
         return {"ssm": mamba_lib.mamba_state_shape(cfg, batch,
@@ -139,17 +147,46 @@ def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
     if kind.mixer == "mla":
         return {"kv": attn_lib.mla_cache_shape(cfg, batch, seq_len, dtype,
                                                device=device)}
-    return {"kv": attn_lib.gqa_cache_shape(cfg, batch, seq_len, dtype,
-                                           device=device,
-                                           window=kind.window)}
+    cache = {"kv": attn_lib.gqa_cache_shape(cfg, batch, seq_len, dtype,
+                                            device=device,
+                                            window=kind.window)}
+    if kind.cross:
+        cache["cross_kv"] = attn_lib.gqa_cache_shape(
+            cfg, batch, cfg.encoder_seq, dtype, device=device)
+    return cache
+
+
+def _cross_attend(params, x, cache_kv: attn_lib.KVCache, cfg):
+    """Decoder cross-attention against the encoder's K/V: K1 non-causal,
+    Sq (the decoder's tokens, 1 in decode) against Skv (the frames)."""
+    B, S, _ = x.shape
+    Hq, hd = cfg.num_heads, cfg.head_dim
+    q = matmul(x, params["wq"]).reshape(B, S, Hq, hd).transpose(1, 2)
+    o = attn_lib.flash_attention(q, cache_kv.k, cache_kv.v, causal=False)
+    o = o.transpose(1, 2).reshape(B, S, Hq * hd)
+    return matmul(o, params["wo"])
+
+
+def _build_cross_kv(params, enc_out, cfg) -> attn_lib.KVCache:
+    """The encoder output's K/V for cross-attention, slot positions 0..F-1
+    (in the encoder output's dtype, promoted with the weights')."""
+    B, F, _ = enc_out.shape
+    Hk, hd = cfg.num_kv_heads, cfg.head_dim
+    k = matmul(enc_out, params["wk"]).reshape(B, F, Hk, hd).transpose(1, 2)
+    v = matmul(enc_out, params["wv"]).reshape(B, F, Hk, hd).transpose(1, 2)
+    return attn_lib.KVCache(k=k, v=v, slot_pos=torch.arange(
+        F, dtype=torch.int32, device=enc_out.device))
 
 
 def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
-                cache=None, pos: Optional[int] = None):
-    """Pre-norm residual block: attention (GQA or MLA) + MLP or MoE, or
+                cache=None, pos: Optional[int] = None, enc_out=None):
+    """Pre-norm residual block: attention (GQA or MLA), then (a decoder
+    block of an encoder-decoder) cross-attention against ``enc_out`` —
+    or, in decode, against the cache's ``cross_kv`` — then MLP or MoE; or
     (SSM) Mamba with no second residual. ``mode``: train | prefill |
     decode. Returns (x, cache, aux_loss) — the MoE layer's load-balance
-    loss, else 0; ``cache`` is updated in place (train takes none)."""
+    loss, else 0; ``cache`` is updated in place (train takes none;
+    prefill writes the encoder's K/V into ``cross_kv``)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -169,6 +206,17 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                                   cache=kv, pos=pos, mode=mode,
                                   causal=kind.causal)
     x = x + y
+    if kind.cross:
+        hc = rms_norm(x, params["norm_cross"], cfg.norm_eps)
+        if mode == "decode":
+            ckv = cache["cross_kv"]
+        else:
+            ckv = _build_cross_kv(params["cross"], enc_out, cfg)
+            if mode == "prefill" and cache is not None:
+                with torch.no_grad():
+                    for dst, src in zip(cache["cross_kv"], ckv):
+                        dst.copy_(src)
+        x = x + _cross_attend(params["cross"], hc, ckv, cfg)
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
     if kind.moe:
         y2, aux = moe_ep.moe_dispatch(params["moe"], h2, cfg)

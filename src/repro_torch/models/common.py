@@ -1,9 +1,23 @@
-"""Shared model building blocks: norms, RoPE, init helpers."""
+"""Shared model building blocks: norms, RoPE, sinusoidal positions,
+init helpers, and the matrix product with the reference's type
+promotion."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's type promotion: operands of two types are
+    multiplied in the wider one (f32 activations against bf16 weights
+    compute in f32, as an encoder fed f32 frame embeddings does in the
+    reference); torch's ``@`` would refuse them."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -43,6 +57,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(seq: int, d: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """Classic transformer sinusoidal table (whisper-style), (seq, d):
+    built in numpy as the reference builds it, then made a tensor of
+    ``dtype`` on ``device``."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10_000.0 ** (2 * dim / d))
+    tab = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(tab).to(device=device, dtype=dtype)
 
 
 def _trunc_normal(shape, std: float, generator: torch.Generator,

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, matmul
 
 
 def mlp_init(generator, d: int, f: int, act: str, dtype=torch.bfloat16,
@@ -23,10 +23,11 @@ def mlp_init(generator, d: int, f: int, act: str, dtype=torch.bfloat16,
 
 def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """Activations in f32 (tanh-approximate gelu, or silu-gated swiglu),
-    cast back to x.dtype before the down projection."""
+    cast back to x.dtype before the down projection (products promote as
+    :func:`~repro_torch.models.common.matmul` says)."""
     if act == "swiglu":
-        g = F.silu((x @ params["w_gate"]).float())
-        u = (x @ params["w_up"]).float()
-        return (g * u).to(x.dtype) @ params["w_down"]
-    h = F.gelu((x @ params["w_in"]).float(), approximate="tanh")
-    return h.to(x.dtype) @ params["w_out"]
+        g = F.silu(matmul(x, params["w_gate"]).float())
+        u = matmul(x, params["w_up"]).float()
+        return matmul((g * u).to(x.dtype), params["w_down"])
+    h = F.gelu(matmul(x, params["w_in"]).float(), approximate="tanh")
+    return matmul(h.to(x.dtype), params["w_out"])

@@ -1,4 +1,6 @@
-"""The causal LM: params, the training loss, caches, prefill and decode.
+"""The models: the causal LM (dense, MoE, SSM, and VLM with its image
+prefix) and the encoder-decoder — params, the training loss, caches,
+prefill and decode.
 
 Layer execution is ``prefix -> period x n -> suffix`` with the period's
 parameters and caches stacked along a leading axis (the reference's
@@ -29,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
 from repro_torch.models import blocks as blk
-from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
+from repro_torch.models.common import (embed_init, init_rms_scale, rms_norm,
+                                       sinusoidal_pos_emb)
 
 AUX_COEF = 0.01  # router load-balance coefficient
 
@@ -43,17 +46,37 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
     ``jax.random``: tests that compare the two convert JAX params with
     ``weights.params_from_jax``."""
     device = resolve_device(device)
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.family!r} models are ported with a later slice")
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
-    plan = blk.build_plan(cfg)
     params: Dict[str, Any] = {}
     params["embed"] = embed_init(g, cfg.padded_vocab, cfg.d_model, dtype,
                                  device=device)
-    params["prefix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
-                             for kind in plan.prefix)
+    params.update(_init_stack(g, cfg, blk.build_plan(cfg), dtype, device))
+    params["final_norm"] = init_rms_scale(cfg.d_model, device=device)
+    if not cfg.tie_embeddings:
+        params["unembed"] = embed_init(g, cfg.padded_vocab, cfg.d_model, dtype,
+                                       device=device).T.contiguous()
+    if cfg.family == "encdec":
+        eplan = _encoder_plan(cfg)
+        enc = _init_stack(g, cfg, eplan, dtype, device)
+        enc["final_norm"] = init_rms_scale(cfg.d_model, device=device)
+        params["encoder"] = enc
+    return params
+
+
+def _encoder_plan(cfg):
+    return blk.build_plan(cfg, decoder=False, num_layers=cfg.encoder_layers)
+
+
+def _init_stack(g, cfg, plan, dtype, device) -> Dict[str, Any]:
+    """``{"prefix", "periods" (when the plan has any), "suffix"}`` of a
+    stack's blocks, drawn in stack order from ``g``."""
+    out: Dict[str, Any] = {}
+    out["prefix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
+                          for kind in plan.prefix)
     if plan.n_periods:
         # the stacked tensors are allocated once and filled a period at a
         # time, so the peak is the stack plus one period (a 15.7 B-param
@@ -70,14 +93,10 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
             for dst, src in zip(tree.leaves(stacked), tree.leaves(one)):
                 dst[i].copy_(src)
             del one
-        params["periods"] = stacked
-    params["suffix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
-                             for kind in plan.suffix)
-    params["final_norm"] = init_rms_scale(cfg.d_model, device=device)
-    if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(g, cfg.padded_vocab, cfg.d_model, dtype,
-                                       device=device).T.contiguous()
-    return params
+        out["periods"] = stacked
+    out["suffix"] = tuple(blk.block_init(g, cfg, kind, dtype, device=device)
+                          for kind in plan.suffix)
+    return out
 
 
 def unembed_matrix(params, cfg):
@@ -91,10 +110,11 @@ def _period_slice(stacked, i: int):
 
 
 def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
-               remat=False):
+               enc_out=None, remat=False):
     """Run prefix + periods + suffix. ``caches`` (prefill/decode) are
-    updated in place; ``remat`` (train) checkpoints each block / period
-    body. Returns (x, caches, aux)."""
+    updated in place; ``enc_out`` is the encoder's output a decoder's
+    cross-attention reads (train, prefill); ``remat`` (train) checkpoints
+    each block / period body. Returns (x, caches, aux)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"_run_stack mode {mode!r} is not train, prefill "
                          "or decode")
@@ -104,18 +124,19 @@ def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
     def one(bp, x, kind, cache):
         if ckpt:
             return checkpoint(
-                lambda p_, x_: blk.block_apply(p_, x_, cfg, kind,
-                                               mode="train"),
-                bp, x, use_reentrant=False)
+                lambda p_, x_, e_: blk.block_apply(p_, x_, cfg, kind,
+                                                   mode="train", enc_out=e_),
+                bp, x, enc_out, use_reentrant=False)
         return blk.block_apply(bp, x, cfg, kind, mode=mode, cache=cache,
-                               pos=pos)
+                               pos=pos, enc_out=enc_out)
 
-    def period(pparams, x, pcache):
+    def period(pparams, x, pcache, enc_out):
         a = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(plan.period):
             x, _, aj = blk.block_apply(
                 pparams[f"sub{j}"], x, cfg, kind, mode=mode,
-                cache=pcache[f"sub{j}"] if pcache else None, pos=pos)
+                cache=pcache[f"sub{j}"] if pcache else None, pos=pos,
+                enc_out=enc_out)
             a = a + aj
         return x, a
 
@@ -127,10 +148,10 @@ def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
         pparams = _period_slice(params["periods"], i)
         pcache = _period_slice(caches["periods"], i) if caches else None
         if ckpt:
-            x, a = checkpoint(lambda p_, x_: period(p_, x_, None), pparams,
-                              x, use_reentrant=False)
+            x, a = checkpoint(lambda p_, x_, e_: period(p_, x_, None, e_),
+                              pparams, x, enc_out, use_reentrant=False)
         else:
-            x, a = period(pparams, x, pcache)
+            x, a = period(pparams, x, pcache, enc_out)
         aux = aux + a
     for j, kind in enumerate(plan.suffix):
         x, _, a = one(params["suffix"][j], x, kind,
@@ -139,28 +160,40 @@ def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
     return x, caches, aux
 
 
-def _embed_inputs(params, cfg, batch):
-    """Decoder-input embeddings (B,S,d) from the batch dict."""
+def _embed_inputs(params, cfg, batch, *, decode: bool = False):
+    """Decoder-input embeddings (B,S,d) from the batch dict; a VLM's
+    ``image_embeds`` (B,P,d) go in front of the text outside decode."""
     tokens = batch["tokens"]
     x = params["embed"][torch.clamp(tokens.long(), 0, cfg.padded_vocab - 1)]
     if cfg.scale_embed:
         x = (x.float() * float(cfg.d_model) ** 0.5).to(x.dtype)
+    if cfg.family == "vlm" and not decode:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
     return x
 
 
-def _later_slice(cfg):
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.family!r} training (image/encoder frontends) is ported "
-            "with the off-main-path families slice")
+def _encode(params, cfg, enc_embeds, *, remat: bool = True):
+    """Whisper-style encoder over stubbed frame embeddings (B,F,d):
+    sinusoidal positions, the non-causal encoder stack, its final norm.
+    The activations keep ``enc_embeds``' dtype (f32 frames against bf16
+    weights compute in f32, as in the reference)."""
+    _, F, d = enc_embeds.shape
+    x = enc_embeds + sinusoidal_pos_emb(F, d, enc_embeds.dtype,
+                                        enc_embeds.device)[None]
+    x, _, _ = _run_stack(params["encoder"], x, cfg, _encoder_plan(cfg),
+                         mode="train", remat=remat)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
 def forward_hidden(params, cfg, batch, *, remat: bool = True):
     """Full-batch forward to final hidden states. Returns (hidden, aux)."""
-    _later_slice(cfg)
     plan = blk.build_plan(cfg)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(params, cfg, batch["enc_embeds"], remat=remat)
     x = _embed_inputs(params, cfg, batch)
-    x, _, aux = _run_stack(params, x, cfg, plan, mode="train", remat=remat)
+    x, _, aux = _run_stack(params, x, cfg, plan, mode="train",
+                           enc_out=enc_out, remat=remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -199,10 +232,21 @@ def chunked_xent(hidden, unembed, labels, weights, chunk: int = 0):
 
 
 def labels_and_weights(cfg, batch):
-    """Next-token labels/weights over the full decoder sequence."""
-    _later_slice(cfg)
+    """Next-token labels/weights over the full decoder sequence. A VLM's
+    sequence is [P image positions; St text tokens]: the image positions
+    carry no weight, and positions P-1 .. P+St-2 predict text tokens
+    0 .. St-1."""
     tokens = batch["tokens"]
     B, St = tokens.shape
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        lab = torch.zeros((B, P + St), dtype=tokens.dtype,
+                          device=tokens.device)
+        lab[:, P - 1:P - 1 + St] = tokens
+        w = torch.zeros((B, P + St), dtype=torch.float32,
+                        device=tokens.device)
+        w[:, P - 1:P - 1 + St] = 1.0
+        return lab, w
     labels = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,
                                                    device=tokens.device)], 1)
     weights = torch.cat([torch.ones((B, St - 1), dtype=torch.float32,
@@ -214,7 +258,9 @@ def labels_and_weights(cfg, batch):
 
 def loss_fn(params, cfg, batch, *, remat: bool = True):
     """Mean next-token cross-entropy (+ the router aux loss) of ``batch``
-    (``{"tokens": (B, S) int}``) under ``params``; differentiable."""
+    (``{"tokens": (B, S) int}``, plus ``"enc_embeds"`` (B,F,d) for an
+    encoder-decoder or ``"image_embeds"`` (B,P,d) for a VLM) under
+    ``params``; differentiable."""
     hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
     labels, weights = labels_and_weights(cfg, batch)
     loss = chunked_xent(hidden, unembed_matrix(params, cfg), labels, weights)
@@ -290,12 +336,16 @@ def set_cache_unit(caches, unit, value):
 
 @torch.no_grad()
 def prefill(params, cfg, batch, caches):
-    """Process the prompt; fill ``caches`` in place; return
-    (last_logits f32 (B,V), caches)."""
+    """Process the prompt (an encoder-decoder's frames through the encoder
+    first, a VLM's image prefix before its text); fill ``caches`` in
+    place; return (last_logits f32 (B,V), caches)."""
     plan = blk.build_plan(cfg)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(params, cfg, batch["enc_embeds"], remat=False)
     x = _embed_inputs(params, cfg, batch)
     x, caches, _ = _run_stack(params, x, cfg, plan, mode="prefill",
-                              caches=caches)
+                              caches=caches, enc_out=enc_out)
     h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     logits = (h @ unembed_matrix(params, cfg))[:, 0, :]
     return logits.float(), caches
@@ -307,7 +357,7 @@ def decode_step(params, cfg, token, pos: int, caches):
 
     Returns (logits (B,V) f32, caches updated in place)."""
     plan = blk.build_plan(cfg)
-    x = _embed_inputs(params, cfg, {"tokens": token})
+    x = _embed_inputs(params, cfg, {"tokens": token}, decode=True)
     x, caches, _ = _run_stack(params, x, cfg, plan, mode="decode",
                               caches=caches, pos=int(pos))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

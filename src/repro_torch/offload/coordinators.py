@@ -442,13 +442,36 @@ class InterLayerTensorCoordinator:
         return self._dev(arr, ("g", l, m))
 
 
+class _LateTail:
+    """One layer's α-tail flush, kept until its writes have landed: the
+    retained gradient tail, the ``prefetch_late`` hint it may consume and,
+    once Adam has run, the updated (master, m, v) segments, so a retry
+    rewrites the same values and never re-runs the update on partly
+    written state."""
+
+    __slots__ = ("g", "step", "pre", "segs")
+
+    def __init__(self, g: np.ndarray, step: int, pre: Optional[IORequest]):
+        self.g, self.step, self.pre, self.segs = g, step, pre, None
+
+
 class OptimizerStepCoordinator:
     """Per-layer Adam over tiered f32 state vectors with α-delay. Each
     layer's update runs as an OPTIMIZER_STATE-priority engine request:
     its tiered-vector reads/writes become chunked channel ops that yield
     to parameter fetches on the same SSD paths. The low-precision copy
     written back to the parameter tier is ``param_dtype`` (a torch type;
-    bf16 rounds to nearest even on the host, :func:`host_cast`)."""
+    bf16 rounds to nearest even on the host, :func:`host_cast`).
+
+    An α-tail flush outlives the step that submits it (the plan's
+    epilogue waits on none), so its faults are settled where it is waited
+    on — at the next step's α gate or in :meth:`finish`'s waits — and
+    never re-raise a finished step's fault as the next step's: a failed
+    ``prefetch_late`` hint is a miss (the flush reads the tail itself),
+    and a failed flush is retried once from its retained segments
+    (:class:`_LateTail`) by :meth:`wait_late`. Only a failed retry
+    raises, in the step that waits on it. The reference re-raises the
+    first failure at the next step's gate."""
 
     def __init__(self, masters: List[TieredVector], ms: List[TieredVector],
                  vs: List[TieredVector], params: List[TieredVector],
@@ -466,6 +489,7 @@ class OptimizerStepCoordinator:
         self._early_futs: Dict[int, IORequest] = {}
         self._late_futs: Dict[int, IORequest] = {}
         self._late_pre: Dict[int, IORequest] = {}   # PREFETCH_OPT reads
+        self._late_tails: Dict[int, _LateTail] = {}  # until writes land
         self.la_hits = 0        # flush_late consumed a landed prefetch
         self.la_misses = 0      # flush_late read the α-tail itself
         self.tracer = None      # engine-attached repro_torch.obs.Tracer
@@ -557,30 +581,56 @@ class OptimizerStepCoordinator:
                 _hint_settle(self, "opt", l, "late")
         else:
             self.la_misses += 1
-
-        def work():
-            if pre is not None:
-                # running-or-done by construction (a queued hint was
-                # cancelled above), so this wait is bounded
-                mast, m_, v_ = pre.result()
-            else:
-                mast = self.masters[l].read_range(k, n)
-                m_ = self.ms[l].read_range(k, n)
-                v_ = self.vs[l].read_range(k, n)
-            self.adam.update(mast, m_, v_, g_tail, step)
-            self.masters[l].write_seg(mast, k)
-            self.ms[l].write_seg(m_, k)
-            self.vs[l].write_seg(v_, k)
-            self.params[l].write_seg(host_cast(mast, self.param_dtype), k)
-
+        tail = _LateTail(g_tail, step, pre)
+        self._late_tails[l] = tail
         self._late_futs[l] = self.engine.submit(
-            work, priority=IOPriority.OPTIMIZER_STATE, category="opt",
+            lambda: self._run_tail(l, tail),
+            priority=IOPriority.OPTIMIZER_STATE, category="opt",
             route="cpu->ssd", nbytes=g_tail.nbytes)
 
+    def _run_tail(self, l: int, tail: _LateTail):
+        """Layer l's α-tail update: read the tail's state (from the hint
+        when it landed), run Adam once, write the segments. A retry after
+        a failure rewrites the retained segments, or reads again when the
+        reads were what failed."""
+        n = self.masters[l].n
+        k = self._k_early(l)
+        if tail.segs is None:
+            segs, pre, tail.pre = None, tail.pre, None
+            if pre is not None:
+                # running-or-done by construction (a queued hint was
+                # cancelled in flush_late), so this wait is bounded; a
+                # failed hint is a miss, never the flush's fault
+                try:
+                    segs = pre.result()
+                except Exception:
+                    segs = None
+            if segs is None:
+                segs = (self.masters[l].read_range(k, n),
+                        self.ms[l].read_range(k, n),
+                        self.vs[l].read_range(k, n))
+            self.adam.update(*segs, tail.g, tail.step)
+            tail.segs = segs
+        mast, m_, v_ = tail.segs
+        self.masters[l].write_seg(mast, k)
+        self.ms[l].write_seg(m_, k)
+        self.vs[l].write_seg(v_, k)
+        self.params[l].write_seg(host_cast(mast, self.param_dtype), k)
+
     def wait_late(self, l: int):
+        """Wait for layer l's α-tail flush. A flush that failed is retried
+        once, here, from its retained segments; only a failed retry
+        raises. Either way nothing of the tail is retained after."""
         f = self._late_futs.pop(l, None)
-        if f is not None:
+        if f is None:
+            return
+        tail = self._late_tails.pop(l, None)
+        try:
             f.result()
+        except Exception:
+            if tail is None:
+                raise
+            self._run_tail(l, tail)
 
     def late_settled(self, l: int) -> bool:
         """Is waiting on layer l's late flush bounded right now — no flush
@@ -594,10 +644,11 @@ class OptimizerStepCoordinator:
             _hint_settle(self, "opt", l, "cancelled")
             _cancel_or_drain(f)     # an orphaned hint's error is moot
         self._late_pre.clear()
-        for d in (self._early_futs, self._late_futs):
-            for f in list(d.values()):
-                f.result()
-            d.clear()
+        for f in list(self._early_futs.values()):
+            f.result()
+        self._early_futs.clear()
+        for l in list(self._late_futs):
+            self.wait_late(l)
 
     def clear(self):
         """Abandon every outstanding flush after a failed step:
@@ -610,6 +661,7 @@ class OptimizerStepCoordinator:
             for f in list(d.values()):
                 _cancel_or_drain(f)
             d.clear()
+        self._late_tails.clear()
         self._hint_t.clear()
         for l in range(len(self.masters)):
             key = f"pending_grad:{l}"

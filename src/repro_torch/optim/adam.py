@@ -67,12 +67,22 @@ def _adam_update(p, g, m, v, step: int, cfg: AdamConfig):
     return p2, m2, v2
 
 
+#: elements of a leaf updated at a time: bounds the update's f32
+#: temporaries (a 1.05 B-element embedding would hold ~7 x 4.2 GB at once)
+_LEAF_CHUNK = 1 << 26
+
+
 def _update_leaf_(p, g, m, v, step: int, cfg: AdamConfig):
-    """:func:`_adam_update` written back into ``p``, ``m``, ``v``."""
-    p2, m2, v2 = _adam_update(p, g, m, v, step, cfg)
-    p.copy_(p2)
-    m.copy_(m2)
-    v.copy_(v2)
+    """:func:`_adam_update` written back into ``p``, ``m``, ``v``
+    (contiguous), ``_LEAF_CHUNK`` elements at a time: the update is
+    element-wise, so the pieces compute the bits of the whole leaf."""
+    pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
+    for lo in range(0, pf.numel(), _LEAF_CHUNK):
+        sl = slice(lo, lo + _LEAF_CHUNK)
+        p2, m2, v2 = _adam_update(pf[sl], gf[sl], mf[sl], vf[sl], step, cfg)
+        pf[sl].copy_(p2)
+        mf[sl].copy_(m2)
+        vf[sl].copy_(v2)
 
 
 def lowp_params(master, compute_dtype):

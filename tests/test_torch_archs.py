@@ -461,11 +461,16 @@ def test_offload_engine_matches_reference_engine(arch):
     ("deepseek-v2-lite-16b", "offload", NotImplementedError),
     ("qwen3-moe-235b-a22b", "offload", NotImplementedError),
     ("deepseek-v2-lite-16b", "serve", NotImplementedError),
-    ("qwen3-moe-235b-a22b", "serve", NotImplementedError)])
+    ("qwen3-moe-235b-a22b", "serve", NotImplementedError),
+    ("whisper-base", "offload", NotImplementedError),
+    ("internvl2-76b", "offload", NotImplementedError),
+    ("whisper-base", "serve", NotImplementedError),
+    ("internvl2-76b", "serve", NotImplementedError)])
 def test_engines_refuse_what_the_reference_refuses(arch, engine, exc):
     """The reference's engines drive dense stacks only, and its offload
     engine one homogeneous period (``serve/engine.py:178``,
-    ``offload/engine.py:412-414``): the port refuses the same."""
+    ``offload/engine.py:412-414``): the port refuses the same, the
+    encoder-decoder and VLM families included."""
     cfg = get_smoke(arch)
     with tempfile.TemporaryDirectory() as d:
         with pytest.raises(exc):

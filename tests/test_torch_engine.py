@@ -196,5 +196,5 @@ def test_later_slices_raise_naming_them():
     with pytest.raises(ValueError, match="param_dtype"):
         OffloadConfig(param_dtype="float16")
     with pytest.raises(NotImplementedError, match="slice"):
-        mdl.loss_fn({}, dataclasses.replace(CFG, family="vlm"),
-                    {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+        mdl.init_params(dataclasses.replace(CFG, family="hybrid"),
+                        device="cpu")

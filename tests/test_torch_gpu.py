@@ -30,6 +30,11 @@ from repro_torch.optim import AdamConfig
 from repro_torch.train import Trainer, checkpoint
 
 
+def _lens(S):
+    """(Sq, Skv) of a case's ``S``."""
+    return S if isinstance(S, tuple) else (S, S)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu where there is one)")
@@ -44,8 +49,14 @@ def _k1_cases(with_q0):
     in both dtypes, and the attention architectures' shapes: gemma3-1b at
     hd 256 (global, and windowed with S no whole number of windows), f32
     at hd 256, deepseek-v2-lite's MLA at q/k 192 with v 128 (``hd`` is
-    then the pair), its smoke config's (48, 32) in f32, and the GQA groups
-    of starcoder2 (9), qwen3-moe (16) and phi3 (4)."""
+    then the pair), its smoke config's (48, 32) in both dtypes, the GQA
+    groups of starcoder2 (9), qwen3-moe (16) and phi3 (4), and the
+    encoder-decoder and VLM shapes: whisper-base's encoder over 1500 frames
+    and its cross-attention of 448 decoder tokens (or 1, in decode: the
+    forward only) against them (``S`` is then (Sq, Skv)), in bf16 and in
+    f32 (its bf16 training computes the encoder in f32), its decoder's
+    causal 448, whisper-base-smoke's cross-attention (16 against 32) in
+    f32, and internvl2's 64:8 group at hd 128."""
     masks = [(True, None, 0), (False, None, 0),
              (True, 40, 5) if with_q0 else (True, 48, 0)]
     cases = [pytest.param(2, 8, 2, 200, 128, dt, c, w, q0,
@@ -87,15 +98,33 @@ def _k1_cases(with_q0):
          True, 48, 16),
         ("deepseek-smoke-mla-f32-48-32", 2, 4, 4, 64, (48, 32), "float32",
          True, None, 0),
+        ("deepseek-smoke-mla-bf16-48-32", 2, 4, 4, 64, (48, 32), "bfloat16",
+         True, None, 0),
         ("starcoder2-g9-2048", 1, 36, 4, 2048, 128, "bfloat16", True, None,
          0),
         ("qwen3-moe-g16-1024", 1, 64, 4, 1024, 128, "bfloat16", True, None,
          0),
         ("phi3-g4-2048", 1, 40, 10, 2048, 128, "bfloat16", True, None, 0),
+        ("whisper-encoder-1500", 4, 8, 8, 1500, 64, "bfloat16", False, None,
+         0),
+        ("whisper-encoder-f32-1500", 4, 8, 8, 1500, 64, "float32", False,
+         None, 0),
+        ("whisper-decoder-448", 4, 8, 8, 448, 64, "bfloat16", True, None, 0),
+        ("whisper-cross-448x1500", 4, 8, 8, (448, 1500), 64, "bfloat16",
+         False, None, 0),
+        ("whisper-cross-f32-448x1500", 4, 8, 8, (448, 1500), 64, "float32",
+         False, None, 0),
+        ("whisper-decode-cross-1x1500", 2, 8, 8, (1, 1500), 64, "bfloat16",
+         False, None, 0),
+        ("whisper-smoke-cross-f32-16x32", 2, 4, 4, (16, 32), 32, "float32",
+         False, None, 0),
+        ("internvl2-g8-1024", 1, 64, 8, 1024, 128, "bfloat16", True, None, 0),
     ]
-    if not with_q0:   # the backward's table: no q0, and two GPT-65B rows
+    if not with_q0:   # the backward's table: no q0, no decode, and two
+        # GPT-65B rows
         card = [(c[0].replace("-q0", ""),) + c[1:-1] + (0,) for c in card
-                if c[0] not in ("gpt-65b-1024", "gpt-65b-512")]
+                if c[0] not in ("gpt-65b-1024", "gpt-65b-512")
+                and "decode" not in c[0]]
     return cases + [pytest.param(*c[1:], id=c[0]) for c in card]
 
 
@@ -110,17 +139,19 @@ def test_hopper_kernel_matches_plain(B, Hq, Hk, S, hd, dtype, causal, window,
     _need_card()
     dt = getattr(torch, dtype)
     hd, hv = hd if isinstance(hd, tuple) else (hd, hd)
+    sq, skv = _lens(S)
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
-    k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-    v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
+    q = torch.randn(B, Hq, sq, hd, device="cuda", generator=g).to(dt)
+    k = torch.randn(B, Hk, skv, hd, device="cuda", generator=g).to(dt)
+    v = torch.randn(B, Hk, skv, hv, device="cuda", generator=g).to(dt)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     kw = dict(causal=causal, window=window, q0=q0)
     before = fa.fwd_launches
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.fwd_launches == before + 1
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw,
+                                            **fa.plain_chunks(*_lens(S)))
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert float(rel) <= 1e-2
@@ -129,12 +160,10 @@ def test_hopper_kernel_matches_plain(B, Hq, Hk, S, hd, dtype, causal, window,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,hv,dtype", [(80, 80, "bfloat16"),
-                                         (80, 80, "float32"),
-                                         (48, 32, "bfloat16")])
+                                         (80, 80, "float32")])
 def test_kernel_refuses_head_dims_not_instantiated(hd, hv, dtype):
-    """Head dims no config has (80), and bf16 at (48, 32) (no TMA box of
-    the bf16 forward fits its 96-byte rows), raise instead of launching or
-    falling back to the plain version."""
+    """Head dims no config has (80) raise instead of launching or falling
+    back to the plain version."""
     _need_card()
     dt = getattr(torch, dtype)
     q = torch.zeros(1, 2, 64, hd, device="cuda", dtype=dt)
@@ -148,7 +177,8 @@ def test_kernel_refuses_head_dims_not_instantiated(hd, hv, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "starcoder2-7b",
                                   "gemma3-1b", "deepseek-v2-lite-16b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "whisper-base",
+                                  "internvl2-76b"])
 def test_smoke_archs_on_the_card_match_the_cpu(arch):
     """chip_smoke.py's gate (w) for one SMOKE config in f32: the card (K1's
     kernels) against the same params on the CPU (their plain versions),
@@ -165,6 +195,24 @@ def test_smoke_archs_on_the_card_match_the_cpu(arch):
     failures, gaps = smoke.archs_smoke_parity(torch, print, archs=(arch,))
     assert not failures, failures
     assert set(gaps) == {arch}
+
+
+@pytest.mark.gpu
+def test_mla_smoke_bf16_on_the_card_matches_the_cpu():
+    """chip_smoke.py's gate (w) in bf16: deepseek-v2-lite-smoke's training
+    step (its MLA through K1's bf16 kernels at q/k 48, v 32, both ways)
+    on the card against the CPU, the loss within the MoE stacks' bf16
+    tolerance."""
+    _need_card()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.ARCHS_SMOKE_BF16_RTOL == 2e-3
+    failures, gaps = smoke.archs_smoke_bf16(torch, fa, print)
+    assert not failures, failures
 
 
 @pytest.mark.gpu
@@ -216,11 +264,12 @@ def test_bwd_kernel_matches_plain_and_is_deterministic(B, Hq, Hk, S, hd,
     _need_card()
     dt = getattr(torch, dtype)
     hd, hv = hd if isinstance(hd, tuple) else (hd, hd)
+    sq, skv = _lens(S)
     g = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn(B, Hq, S, hd, device="cuda", generator=g).to(dt)
-    do = torch.randn(B, Hq, S, hv, device="cuda", generator=g).to(dt)
-    k = torch.randn(B, Hk, S, hd, device="cuda", generator=g).to(dt)
-    v = torch.randn(B, Hk, S, hv, device="cuda", generator=g).to(dt)
+    q = torch.randn(B, Hq, sq, hd, device="cuda", generator=g).to(dt)
+    do = torch.randn(B, Hq, sq, hv, device="cuda", generator=g).to(dt)
+    k = torch.randn(B, Hk, skv, hd, device="cuda", generator=g).to(dt)
+    v = torch.randn(B, Hk, skv, hv, device="cuda", generator=g).to(dt)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
     kw = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -229,7 +278,8 @@ def test_bwd_kernel_matches_plain_and_is_deterministic(B, Hq, Hk, S, hd,
     again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     assert fa.bwd_launches == before + 2
-    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw,
+                                        **fa.plain_chunks(*_lens(S)))
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)

@@ -84,7 +84,7 @@ def test_k1_plain_with_v_head_dim_apart_matches_reference(B, Hq, Hk, S, hd,
 
 @pytest.mark.parametrize("hd,hdv,dtype,ok", [
     (192, 128, torch.float32, True), (192, 128, torch.bfloat16, True),
-    (48, 32, torch.float32, True), (48, 32, torch.bfloat16, False),
+    (48, 32, torch.float32, True), (48, 32, torch.bfloat16, True),
     (128, 64, torch.float32, False), (80, 80, torch.bfloat16, False),
 ])
 def test_kernel_checks_take_only_instantiated_pairs(hd, hdv, dtype, ok):

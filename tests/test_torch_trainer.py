@@ -216,5 +216,5 @@ def test_entry_points_raise_without_a_card():
         cli.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--steps", "1", "--offload"])
-    with pytest.raises(KeyError, match="item 5"):
+    with pytest.raises(KeyError, match="item 6"):
         cli.main(["--arch", "jamba-v0.1-52b", "--device", "cpu"])
