@@ -130,9 +130,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relative; (y) internvl2-76b at full width (depth 80 -> 2: a prefill of
    256 image + 768 text positions, 16 decode steps, the same gate; depth
    1 for the Trainer, 4 steps of 2 x 1024).
+10. hybrid — jamba-v0.1-52b (1 attention : 7 Mamba layers, MoE 16 x
+   top-2 on every other layer) at full width: (z1) one 8-layer block (13.3
+   B params, bf16) generating as (t): a prefill of 2 x 1024 (MoE drops at
+   capacity 1.25), 16 timed decode steps and two under the profiler, then
+   at capacity factor E / K a prefill, 16 decode steps into caches grown a
+   slot a step (Mamba states copied whole) and a fresh prefill: K1
+   launches == 3 prefills x 1 attention layer, K3 launches == 3 x 7 Mamba
+   layers, the last step within 0.1 relative; (z2) 2 layers (Mamba + MLP,
+   Mamba + MoE: 3.74 B params) through the ``Trainer``, bf16, 4 steps of
+   2 x 1024, M 2: finite losses, the first batch's loss refit under the
+   trained params below its step-1 loss, no kernel launched (training
+   runs the model's chunked scan), one step profiled beside the chunked
+   scan alone; (w) jamba-v0.1-52b's and falcon-mamba-7b's SMOKE configs
+   in f32, card vs CPU: the training step's loss and gradients within
+   1e-5, prefill and 4 decode steps' logits within 1e-4, each decode step
+   from the CPU's caches.
 
 Prints every measurement (``serve stats``, ``train stats``, ``dp stats``,
-``mamba stats``, ``entry stats`` and ``archs stats`` JSON lines, the autotuner's decision
+``mamba stats``, ``entry stats``, ``archs stats`` and ``hybrid stats``
+JSON lines, the autotuner's decision
 log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``.
@@ -143,6 +160,7 @@ log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
     python3 chip_smoke.py --phases mamba
     python3 chip_smoke.py --phases entry
     python3 chip_smoke.py --phases kernels,archs
+    python3 chip_smoke.py --phases hybrid
 """
 from __future__ import annotations
 
@@ -287,6 +305,10 @@ K1_SHAPES = [
      "float32", False, None, 0),
     ("internvl2-76b S=1024 G=8", 1, 64, 8, 1024, 128, "bfloat16", True, None,
      0),
+    # the hybrid family (gate (z1)): jamba-v0.1-52b's attention layer in a
+    # prefill of 2 x 1024 tokens, 32 q heads on 8 KV heads at hd 128
+    ("jamba-v0.1-52b S=1024 G=4", 2, 32, 8, 1024, 128, "bfloat16", True,
+     None, 0),
 ]
 #: (q/k, v) head dims K1 must refuse with ValueError, per dtype
 K1_REFUSED = [((80, 80), "bfloat16"), ((80, 80), "float32")]
@@ -400,6 +422,12 @@ K3_SHAPES = [
      K3_DT_RANK),
     ("falcon-mamba-7b width B=2 S=64", 2, 64, 8192, 16, "bfloat16",
      K3_DT_RANK),
+    # the hybrid family: jamba-v0.1-52b's prefill in gate (z1) (d_inner
+    # 8192, state 16, dt_rank 256 as falcon-mamba's), its SMOKE config's in
+    # gate (w) (dt_rank 16)
+    ("jamba-v0.1-52b prefill B=2 S=1024", 2, 1024, 8192, 16, "bfloat16",
+     K3_DT_RANK),
+    ("jamba-v0.1-52b-smoke f32 (2,40,512,8)", 2, 40, 512, 8, "float32", 16),
 ]
 K3_HEADLINE = "falcon-mamba-7b prefill B=1 S=2048"
 K3_ATOL_F32 = 1e-4               # tests/test_kernels.py's selective-scan atol
@@ -517,6 +545,33 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = 2, 4, 32
 # gradient (11.8 GB)
 VLM_LAYERS, VLM_TEXT, VLM_GEN = 2, 768, 16
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_B, VLM_TRAIN_S = 1, 4, 2, 1024
+# (the hybrid phase) jamba-v0.1-52b (arXiv:2403.19887) at full width. (z1)
+# the generation over one 8-layer block, depth cut 32 -> 8 (13.30 B params,
+# 26.6 GB of bf16; the whole stack's 51.6 B, ~103 GB, do not fit one card):
+# Mamba + MLP, Mamba + MoE, Mamba + MLP, GQA 32:8 + MoE as the prefix, then
+# (Mamba + MLP, Mamba + MoE) x 2, through ``moe_generate`` as (t) and (v):
+# K1 in the attention layer's prefills, K3 in the 7 Mamba layers', the last
+# decode step against a fresh prefill within LAST_STEP_REL_TOL (the MoE
+# gates' 0.1, written into PERF.md before the first card run: falcon-mamba's
+# healthy decode-vs-prefill gaps are 0.027 / 0.069 over 64 Mamba layers,
+# and here 7 carry 16 steps). The gate runs in f32 (26.6 GB of bf16 params
+# freed, the same seed's 53.2 GB of f32 made): in bf16 a decoded token
+# whose top-2 router choice ties within the rounding of the decode's and
+# the prefill's paths takes other experts in one of them, and that step's
+# logits part by up to 0.59 (an H100, 16 steps: 0.025-0.03 between such
+# flips, 0.146 at the last; with dense MLPs in place of the MoE a flat
+# 0.024-0.029; in f32 0.0044-0.0060). (z2) the Trainer at depth 2 (Mamba + MLP,
+# Mamba + MoE of 16 experts: 3.74 B params), bf16, alpha 0, 4 steps of
+# 2 x 1024 tokens, M 2, lr 1e-4, as (y): at (y)'s 18.9 B a param ~66 GiB;
+# alpha > 0 would add an f32 copy of every gradient (~15 GB)
+JAMBA_GEN_LAYERS = 8
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_B, JAMBA_TRAIN_S = \
+    2, 4, 2, 1024
+JAMBA_TRAIN_M = 2
+# gate (w)'s Mamba stacks, run in the hybrid phase: the training step is
+# the Mamba training check on the card (the model's chunked scan under
+# autograd, K1's backward at hd 32 in Jamba's attention layer)
+HYBRID_SMOKE_ARCHS = ("jamba-v0.1-52b", "falcon-mamba-7b")
 
 
 def nvidia_smi_line() -> str:
@@ -2424,12 +2479,14 @@ def rel_norm(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def grow_caches(torch, mdl, cfg, caches, n: int, batch: int = MOE_B):
+def grow_caches(torch, mdl, cfg, caches, n: int, batch: int = MOE_B,
+                dtype=None):
     """Caches of ``n`` slots holding ``caches``' slots (one fewer) in front:
     each leaf is copied along the one axis where the sizes differ (a
-    cross-attention cache of the encoder's frames is copied whole)."""
+    cross-attention cache of the encoder's frames, a Mamba state, is
+    copied whole). ``dtype``: the caches' (bf16 if None)."""
     from repro_torch import tree
-    new = mdl.init_caches(cfg, batch, n)
+    new = mdl.init_caches(cfg, batch, n, dtype or torch.bfloat16)
     for old, dst in zip(tree.leaves(caches), tree.leaves(new)):
         ax = [i for i, (a, b) in enumerate(zip(old.shape, dst.shape))
               if a != b]
@@ -2437,23 +2494,27 @@ def grow_caches(torch, mdl, cfg, caches, n: int, batch: int = MOE_B):
     return new
 
 
-def moe_generate(torch, fa, report, cfg, label):
+def moe_generate(torch, fa, report, cfg, label, gate_dtype=None):
     """``cfg`` at its width in bf16 on the card, random weights. The plain
     generation at the reference's capacity: a prefill of MOE_B x MOE_S
     tokens (its MoE drop count) and MOE_GEN greedy ``decode_step``s, each
     timed alone, then two more under ``torch.profiler``. The gate, with
-    the blocks' MoE at capacity factor E / K (nothing drops): a prefill
+    the blocks' MoE at capacity factor E / K (nothing drops), in
+    ``gate_dtype`` (bf16 if None; the same seed's params): a prefill
     into caches of MOE_S slots, MOE_GEN greedy ``decode_step``s, each into
-    caches grown by one slot (``grow_caches``), and a fresh prefill over
-    prompt + generated tokens. Returns (failures, stats): K1 launches ==
-    3 prefills x layers (every layer's MLA or GQA prefill goes through
-    K1), the gate's last decode step's logits against the fresh prefill's
-    last logits."""
+    caches grown by one slot (``grow_caches``: a Mamba state is copied
+    whole), and a fresh prefill over prompt + generated tokens. Returns
+    (failures, stats): K1 launches == 3 prefills x the plan's attention
+    layers (every MLA or GQA prefill goes through K1), K3 launches == 3
+    prefills x its Mamba layers, the gate's last decode step's logits
+    against the fresh prefill's last logits."""
     import functools
     import gc
 
     from repro_torch import tree
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import selective_scan as k3
+    from repro_torch.models import blocks as blk
     from repro_torch.models import model as mdl
     from repro_torch.models import moe, moe_ep
 
@@ -2467,9 +2528,12 @@ def moe_generate(torch, fa, report, cfg, label):
     data = SyntheticLM(cfg.vocab_size, seed=0)
     prompt = torch.from_numpy(data.batch(MOE_B, MOE_S)).long().to("cuda")
     L = cfg.num_layers
+    kinds = blk.build_plan(cfg).all_kinds()
+    n_k1 = sum(k.mixer in ("attn", "mla") for k in kinds)
+    n_k3 = sum(k.mixer == "mamba" for k in kinds)
     torch.cuda.reset_peak_memory_stats()
     caches = mdl.init_caches(cfg, MOE_B, MOE_S + MOE_GEN + 2)
-    fa.fwd_launches = 0                          # main path starts here
+    fa.fwd_launches = k3.launches = 0            # main path starts here
     moe.reset_dropped()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2489,30 +2553,38 @@ def moe_generate(torch, fa, report, cfg, label):
         params, cfg, tok[:, None], MOE_S + MOE_GEN + i, caches)
         for i in range(2)])
     del caches
+    gate_dtype = gate_dtype or torch.bfloat16
+    if gate_dtype != torch.bfloat16:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = mdl.init_params(cfg, 0, dtype=gate_dtype)
 
     real_dispatch = moe_ep.moe_dispatch
     moe_ep.moe_dispatch = functools.partial(
         moe.moe_apply, capacity_factor=cfg.num_experts / cfg.moe_top_k)
     try:
         moe.reset_dropped()
-        caches = mdl.init_caches(cfg, MOE_B, MOE_S)
+        caches = mdl.init_caches(cfg, MOE_B, MOE_S, gate_dtype)
         logits, caches = mdl.prefill(params, cfg, {"tokens": prompt},
                                      caches)
         toks = [torch.argmax(logits, dim=-1)]
         for i in range(MOE_GEN):
-            caches = grow_caches(torch, mdl, cfg, caches, MOE_S + i + 1)
+            caches = grow_caches(torch, mdl, cfg, caches, MOE_S + i + 1,
+                                 dtype=gate_dtype)
             logits, caches = mdl.decode_step(params, cfg, toks[-1][:, None],
                                              MOE_S + i, caches)
             toks.append(torch.argmax(logits, dim=-1))
         last = logits
         full = torch.cat([prompt] + [t[:, None] for t in toks[:-1]], dim=1)
-        fresh = mdl.init_caches(cfg, MOE_B, full.shape[1])
+        fresh = mdl.init_caches(cfg, MOE_B, full.shape[1], gate_dtype)
         want, _ = mdl.prefill(params, cfg, {"tokens": full}, fresh)
         torch.cuda.synchronize()
         gate_dropped = moe.dropped_count()
     finally:
         moe_ep.moe_dispatch = real_dispatch
     launches = fa.fwd_launches                   # main path ends here
+    k3_launches = k3.launches
     peak = torch.cuda.max_memory_allocated()
     rel = rel_norm(last, want)
     top1 = float((last.argmax(-1) == want.argmax(-1)).float().mean())
@@ -2523,9 +2595,12 @@ def moe_generate(torch, fa, report, cfg, label):
         failures.append(f"({label}) {cfg.name}: last decode step vs fresh "
                         f"prefill rel {rel} (tol {LAST_STEP_REL_TOL}), "
                         f"finite {finite}")
-    if launches != 3 * L:
+    if launches != 3 * n_k1:
         failures.append(f"({label}) {cfg.name}: K1 launches {launches} != "
-                        f"3 prefills x {L} layers")
+                        f"3 prefills x {n_k1} attention layers")
+    if k3_launches != 3 * n_k3:
+        failures.append(f"({label}) {cfg.name}: K3 launches {k3_launches} "
+                        f"!= 3 prefills x {n_k3} Mamba layers")
     if gate_dropped:
         failures.append(f"({label}) {cfg.name}: {gate_dropped} MoE "
                         f"assignments dropped at capacity factor E / K")
@@ -2537,11 +2612,12 @@ def moe_generate(torch, fa, report, cfg, label):
              "decode_step_s": step_s, "decode_tokens_per_s": decode_tps,
              "decode_2_steps_busy": busy,
              "last_step_rel": rel, "last_step_top1_agree": top1,
+             "gate_dtype": str(gate_dtype).replace("torch.", ""),
              "moe_dropped_first_prefill": dropped,
              "moe_assignments_first_prefill":
-                 (L - cfg.first_dense_layers) * MOE_B * MOE_S
-                 * cfg.moe_top_k,
-             "k1_launches": launches, "max_memory_allocated": peak}
+                 sum(k.moe for k in kinds) * MOE_B * MOE_S * cfg.moe_top_k,
+             "k1_launches": launches, "k3_launches": k3_launches,
+             "max_memory_allocated": peak}
     report(f"({label}) {cfg.name} ({L} layers, {n_params / 1e9:.2f} B "
            f"params, bf16, init {init_s:.1f} s): prefill {MOE_B} x {MOE_S} "
            f"in {prefill_s:.3f} s ({stats['prefill_tokens_per_s']:.0f} "
@@ -2550,9 +2626,11 @@ def moe_generate(torch, fa, report, cfg, label):
            f"card busy {busy['busy_ms']:.1f} of {busy['wall_ms']:.1f} ms, "
            f"{100 * busy['busy_share']:.1f} %), MoE dropped {dropped} of "
            f"{stats['moe_assignments_first_prefill']} assignments in the "
-           f"first prefill, gate: last step vs fresh prefill rel "
-           f"{rel:.4f} (tol {LAST_STEP_REL_TOL}), top-1 agree {top1}, K1 "
-           f"launches {launches} (want {3 * L}), max_memory_allocated "
+           f"first prefill, gate ({stats['gate_dtype']}): last step vs "
+           f"fresh prefill rel {rel:.4f} (tol {LAST_STEP_REL_TOL}), top-1 "
+           f"agree {top1}, K1 "
+           f"launches {launches} (want {3 * n_k1}), K3 launches "
+           f"{k3_launches} (want {3 * n_k3}), max_memory_allocated "
            f"{peak / 2**30:.2f} GiB -> {'OK' if not failures else 'FAIL'}")
     del params, caches, fresh, logits, want, last
     gc.collect()
@@ -2726,17 +2804,24 @@ def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
     and 4 decode steps' logits, each within ARCHS_SMOKE_TOL. An
     encoder-decoder's batch adds its frame embeddings (the encoder, and
     cross-attention at Sq != Skv and, in decode, at Sq = 1), a VLM's its
-    image prefix (decode positions follow it). Returns (failures, gaps by
-    arch)."""
+    image prefix (decode positions follow it). A stack with Mamba layers
+    trains through the model's chunked scan on both devices (held at
+    ARCHS_SMOKE_TOL); its prefill runs K3 on the card, and its logits are
+    held at MAMBA_PARITY_TOL with each decode step started on the card
+    from the CPU's caches, as :func:`mamba_parity` holds falcon-mamba's.
+    Returns (failures, gaps by arch)."""
     import numpy as np
 
     from repro_torch import tree
     from repro_torch.configs import get_smoke
+    from repro_torch.models import blocks as blk
     from repro_torch.models import model as mdl
 
     failures, gaps = [], {}
     for arch in archs:
         cfg = get_smoke(arch)
+        ssm = any(k.mixer == "mamba" for k in blk.build_plan(cfg).all_kinds())
+        logit_tol = MAMBA_PARITY_TOL if ssm else ARCHS_SMOKE_TOL
         params = mdl.init_params(cfg, 3, dtype=torch.float32, device="cpu")
         rng = np.random.default_rng(0)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
@@ -2748,7 +2833,7 @@ def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
             P = cfg.frontend_tokens
             extra["image_embeds"] = torch.from_numpy(rng.standard_normal(
                 (2, P, cfg.d_model)).astype(np.float32))
-        out = {}
+        out, states = {}, []
         for dev in ("cpu", "cuda"):
             ex = {k: v.to(dev) for k, v in extra.items()}
             p = tree.tree_map(
@@ -2763,6 +2848,12 @@ def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
                 p, cfg, {"tokens": toks[:, :40].to(dev), **ex}, caches)
             seq = [logits.cpu()]
             for i in range(4):
+                if ssm and dev == "cpu":
+                    states.append(tree.tree_map(torch.clone, caches))
+                elif ssm:                    # the CPU's caches on the card
+                    for dst, src in zip(tree.leaves(caches),
+                                        tree.leaves(states[i])):
+                        dst.copy_(src)
                 logits, caches = mdl.decode_step(
                     p, cfg, toks[:, 40 + i:41 + i].to(dev), P + 40 + i,
                     caches)
@@ -2774,15 +2865,19 @@ def archs_smoke_parity(torch, report, archs=SMOKE_ARCHS):
             b.abs().max())) for a, b in zip(gg, gc_))
         logit_gap = max(float((a - b).abs().max()) for a, b in zip(sg, sc))
         gaps[arch] = {"loss": loss_gap, "grad_scaled": grad_gap,
-                      "logits": logit_gap}
-        ok = max(loss_gap, grad_gap, logit_gap) <= ARCHS_SMOKE_TOL
+                      "logits": logit_gap, "logit_tol": logit_tol,
+                      "decode_from_cpu_state": ssm}
+        ok = (max(loss_gap, grad_gap) <= ARCHS_SMOKE_TOL
+              and logit_gap <= logit_tol)
         if not ok:
             failures.append(f"(w) {arch}-smoke f32 card vs CPU: {gaps[arch]}"
                             f" (tol {ARCHS_SMOKE_TOL})")
         report(f"(w) {arch}-smoke f32 card vs CPU: loss {loss_gap:.3e}, "
-               f"gradients {grad_gap:.3e} (of each leaf's max), prefill + 4 "
-               f"decode logits {logit_gap:.3e} (tol {ARCHS_SMOKE_TOL}) -> "
-               f"{'OK' if ok else 'FAIL'}")
+               f"gradients {grad_gap:.3e} (of each leaf's max; tol "
+               f"{ARCHS_SMOKE_TOL}), prefill + 4 decode logits "
+               f"{logit_gap:.3e} (tol {logit_tol}"
+               + (", each decode step from the CPU's caches" if ssm else "")
+               + f") -> {'OK' if ok else 'FAIL'}")
     return failures, gaps
 
 
@@ -3091,6 +3186,138 @@ def internvl2_gates(torch, fa, report):
     return failures, {"generate": gen, "train": train}
 
 
+def phase_hybrid(torch, fa, report):
+    """The hybrid family: (z1) jamba-v0.1-52b generating at full width over
+    one 8-layer block (``moe_generate``), (z2) trained at 2 layers
+    (:func:`jamba_train_gates`), (w) the SMOKE configs of Jamba and
+    falcon-mamba-7b card vs CPU. Returns (failures, stats)."""
+    from repro_torch.configs import get_config
+
+    failures, stats, wall = [], {}, {}
+    full = get_config("jamba-v0.1-52b")
+    t0 = time.perf_counter()
+    f, stats["generate"] = moe_generate(
+        torch, fa, report, dataclasses.replace(
+            full, num_layers=JAMBA_GEN_LAYERS), "z1",
+        gate_dtype=torch.float32)
+    failures += f
+    wall["z1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f, stats["train"] = jamba_train_gates(torch, fa, report, full)
+    failures += f
+    wall["z2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f, stats["smoke_card_vs_cpu"] = archs_smoke_parity(
+        torch, report, archs=HYBRID_SMOKE_ARCHS)
+    failures += f
+    wall["w"] = time.perf_counter() - t0
+    stats["gate_wall_s"] = wall
+    return failures, stats
+
+
+def jamba_train_gates(torch, fa, report, full):
+    """Gate (z2): ``full`` at ``JAMBA_TRAIN_LAYERS`` layers (Mamba + MLP,
+    Mamba + MoE) through the ``Trainer``, bf16, alpha 0, lr 1e-4,
+    ``JAMBA_TRAIN_STEPS`` steps of ``JAMBA_TRAIN_B`` x ``JAMBA_TRAIN_S``
+    tokens, M ``JAMBA_TRAIN_M``: finite losses, the first batch's loss under
+    the trained params below its step-1 loss (as (y)), and no kernel
+    launch: the layers hold no attention, the Trainer's Adam is the
+    model's own, and training runs the model's chunked scan (K3 has no
+    backward, in the reference too). Then where a step's time goes: one
+    step more under ``torch.profiler`` (``card_busy``: the card's busy
+    share), and one with the chunked scan replaced by its ``D x`` term
+    alone (same shapes and gradients' paths, no recurrence): the step
+    time that the scan takes is the gated steps' mean less that step's.
+    Returns (failures, stats)."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.core import ScheduleConfig
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels import fused_adam as fad
+    from repro_torch.kernels import selective_scan as k3
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import Trainer
+
+    cfg = dataclasses.replace(full, num_layers=JAMBA_TRAIN_LAYERS)
+    B, S, M = JAMBA_TRAIN_B, JAMBA_TRAIN_S, JAMBA_TRAIN_M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ScheduleConfig(num_microbatches=M), AdamConfig(lr=1e-4))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(tr.params))
+    fa.fwd_launches = fa.bwd_launches = 0        # main path starts here
+    k3.launches = fad.launches = 0
+    rep = tr.run(JAMBA_TRAIN_STEPS, B, S, log_every=0)
+    torch.cuda.synchronize()
+    launches = {"k1_fwd": fa.fwd_launches, "k1_bwd": fa.bwd_launches,
+                "k2": fad.launches, "k3": k3.launches}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = rep.losses
+    # the Trainer's first batch again (its data stream from the start)
+    first = make_batch(cfg, B, S, seed=1,
+                       data=SyntheticLM(cfg.vocab_size, seed=0))
+    with torch.no_grad():
+        refit = float(mdl.loss_fn(tr.params, cfg, {
+            k: torch.from_numpy(v).to("cuda") for k, v in first.items()}))
+    failures = []
+    ok = (all(v == 0 for v in launches.values())
+          and all(map(math.isfinite, losses)) and refit < losses[0])
+    if not ok:
+        failures.append(f"(z2) {cfg.name} Trainer: launches {launches} (want "
+                        f"none), losses not finite {losses}, or the first "
+                        f"batch's loss {refit} not below {losses[0]}")
+    step = card_busy(torch, lambda: tr.run(1, B, S, log_every=0))
+    real_scan = mamba_lib.selective_scan
+
+    def d_x_only(x, dt, A, Bc, Cc, D, *, h0=None, chunk=64):
+        y = x.float() * D + 0.0 * (dt + A.sum() + Bc.float().sum(-1, True)
+                                   + Cc.float().sum(-1, True))
+        return y.to(x.dtype), None
+    mamba_lib.selective_scan = d_x_only
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(1, B, S, log_every=0)
+        torch.cuda.synchronize()
+        no_scan_s = time.perf_counter() - t0
+    finally:
+        mamba_lib.selective_scan = real_scan
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {"layers": JAMBA_TRAIN_LAYERS, "params": n_params,
+             "init_s": init_s, "steps": JAMBA_TRAIN_STEPS, "batch": B,
+             "seq_len": S, "micro_batches": M, "alpha": 0.0, "lr": 1e-4,
+             "losses": losses, "first_batch_loss_trained": refit,
+             "s_per_step": 1.0 / rep.steps_per_s,
+             "tokens_per_s": rep.tokens_per_s,
+             "max_memory_allocated": peak, "launches": launches,
+             "profiled_step": step, "step_without_scan_s": no_scan_s,
+             "chunked_scan_share_of_step":
+                 1.0 - no_scan_s * rep.steps_per_s}
+    report(f"(z2) {full.name} Trainer, full width, depth cut "
+           f"{full.num_layers} -> {JAMBA_TRAIN_LAYERS} (Mamba + MLP, Mamba + "
+           f"MoE of {cfg.num_experts}; {n_params / 1e9:.3f} B params), bf16, "
+           f"{JAMBA_TRAIN_STEPS} steps of {B} x {S}, M {M}, alpha 0: "
+           f"{stats['s_per_step']:.3f} s/step, {rep.tokens_per_s:.0f} "
+           f"tokens/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, the first "
+           f"batch's {losses[0]:.4f} -> {refit:.4f}, launches {launches} "
+           f"(want none), max_memory_allocated {peak / 2**30:.2f} GiB; one "
+           f"step profiled: card busy {step['busy_ms']:.1f} of "
+           f"{step['wall_ms']:.1f} ms ({100 * step['busy_share']:.1f} %); "
+           f"a step with the scan's D x term alone {no_scan_s:.3f} s (the "
+           f"chunked scan "
+           f"{100 * stats['chunked_scan_share_of_step']:.1f} % of a step) "
+           f"-> {'OK' if ok else 'FAIL'}")
+    return failures, stats
+
+
 def _kernel_entry(name, source, replaces, launches, rows, headline,
                   smi, **extra):
     head = next((r for r in rows if r["shape"] == headline), None)
@@ -3107,9 +3334,10 @@ def _kernel_entry(name, source, replaces, launches, rows, headline,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,train,dp,mamba,entry,archs",
+                    default="kernels,serve,train,dp,mamba,entry,archs,"
+                            "hybrid",
                     help="comma list of: kernels, serve, train, dp, mamba, "
-                         "entry, archs")
+                         "entry, archs, hybrid")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3330,6 +3558,23 @@ def main() -> int:
         failures += f
         report("archs stats: " + json.dumps(astats))
         wall["archs"] = time.perf_counter() - t0
+    # 10. hybrid
+    hstats = {}
+    if "hybrid" in phases:
+        t0 = time.perf_counter()
+        f, hstats = phase_hybrid(torch, fa, report)
+        failures += f
+        g, t = hstats["generate"], hstats["train"]
+        report(f"hybrid ({smi}): {g['model']} at {g['layers']} layers decode "
+               f"{g['decode_tokens_per_s']:.1f} tokens/s (card busy "
+               f"{100 * g['decode_2_steps_busy']['busy_share']:.1f} % of two "
+               f"steps), MoE dropped {g['moe_dropped_first_prefill']} of "
+               f"{g['moe_assignments_first_prefill']}; trained at "
+               f"{t['layers']} layers {t['s_per_step']:.3f} s/step, "
+               f"{t['tokens_per_s']:.0f} tokens/s, "
+               f"{t['max_memory_allocated'] / 2**30:.2f} GiB")
+        report("hybrid stats: " + json.dumps(hstats))
+        wall["hybrid"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
@@ -3348,7 +3593,9 @@ def main() -> int:
     tq = astats.get("train_deepseek", {}).get("launches", {})
     tw = astats.get("whisper", {}).get("train", {}).get("launches", {})
     tv = astats.get("internvl2", {}).get("train", {}).get("launches", {})
-    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq, tw, tv))
+    tj = hstats.get("train", {}).get("launches", {})
+    tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq, tw, tv,
+                                       tj))
           for k in ("k1_fwd", "k1_bwd", "k2")}
     serve_k1 = stats.get("k1_launches", 0)
     arch_k1 = {"archs_serve_gemma3": astats.get("serve_gemma3", {}).get(
@@ -3360,7 +3607,13 @@ def main() -> int:
                "archs_generate_whisper": astats.get("whisper", {}).get(
                    "generate", {}).get("k1_launches", 0),
                "archs_generate_internvl2": astats.get("internvl2", {}).get(
-                   "generate", {}).get("k1_launches", 0)}
+                   "generate", {}).get("k1_launches", 0),
+               "hybrid_generate_jamba": hstats.get("generate", {}).get(
+                   "k1_launches", 0)}
+    k3_paths = {"mamba": mstats.get("k3_launches", 0),
+                "hybrid_generate_jamba": hstats.get("generate", {}).get(
+                    "k3_launches", 0),
+                "hybrid_train_jamba": tj.get("k3", 0)}
     kernels = [
         _kernel_entry("K1 flash_attention_fwd",
                       "src/repro_torch/csrc/flash_attention_fwd.cu",
@@ -3373,6 +3626,7 @@ def main() -> int:
                           "archs_train_deepseek": tq.get("k1_fwd", 0),
                           "archs_train_whisper": tw.get("k1_fwd", 0),
                           "archs_train_internvl2": tv.get("k1_fwd", 0),
+                          "hybrid_train_jamba": tj.get("k1_fwd", 0),
                           "train_recompute": tr.get("k1_fwd", 0),
                           "train_spill": ts.get("k1_fwd", 0),
                           "train_dp": td.get("k1_fwd", 0),
@@ -3391,7 +3645,8 @@ def main() -> int:
                           "archs_train_gemma3": tg.get("k1_bwd", 0),
                           "archs_train_deepseek": tq.get("k1_bwd", 0),
                           "archs_train_whisper": tw.get("k1_bwd", 0),
-                          "archs_train_internvl2": tv.get("k1_bwd", 0)}),
+                          "archs_train_internvl2": tv.get("k1_bwd", 0),
+                          "hybrid_train_jamba": tj.get("k1_bwd", 0)}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl["k2"], arows, K2_HEADLINE, smi,
@@ -3400,11 +3655,13 @@ def main() -> int:
                           "train_spill": ts.get("k2", 0),
                           "train_dp": td.get("k2", 0),
                           "entry_cli": te.get("k2", 0),
-                          "entry_cli_offload": to.get("k2", 0)}),
+                          "entry_cli_offload": to.get("k2", 0),
+                          "hybrid_train_jamba": tj.get("k2", 0)}),
         _kernel_entry("K3 selective_scan_fwd",
                       "src/repro_torch/csrc/selective_scan.cu",
                       "src/repro/kernels/selective_scan.py:27",
-                      mstats.get("k3_launches", 0), srows, K3_HEADLINE, smi,
+                      sum(k3_paths.values()), srows, K3_HEADLINE, smi,
+                      launches_by_path=k3_paths,
                       library="none: no PyTorch call computes a selective "
                               "scan"),
     ]

@@ -3,9 +3,10 @@
 The architectures the port's slices run: dense stacks of GQA attention
 + MLP (global, or gemma3's 5:1 sliding-window:global), the MoE stacks
 (deepseek-v2-lite's MLA + shared experts, qwen3-moe), the pure-Mamba
-falcon-mamba-7b, the encoder-decoder whisper-base and the VLM backbone
-internvl2-76b; the dataclass and the configs themselves are copies of
-the reference's.
+falcon-mamba-7b, the hybrid jamba-v0.1-52b (1 attention : 7 Mamba layers,
+MoE on every other layer), the encoder-decoder whisper-base and the VLM
+backbone internvl2-76b; the dataclass and the configs themselves are
+copies of the reference's.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ _MODULES = {
                             "CONFIG"),
     "whisper-base": ("repro_torch.configs.whisper_base", "CONFIG"),
     "internvl2-76b": ("repro_torch.configs.internvl2_76b", "CONFIG"),
+    "jamba-v0.1-52b": ("repro_torch.configs.jamba_v01_52b", "CONFIG"),
 }
 
 
@@ -38,11 +40,8 @@ def _entry(name: str):
     try:
         return _MODULES[name]
     except KeyError:
-        raise KeyError(
-            f"{name!r} is not an architecture of the port (it has "
-            f"{sorted(_MODULES)}); the reference's hybrid family "
-            "(jamba-v0.1-52b) comes with a later slice (ROADMAP.md, "
-            "section 1, item 6)") from None
+        raise KeyError(f"{name!r} is not an architecture of the port "
+                       f"(it has {sorted(_MODULES)})") from None
 
 
 def get_config(name: str) -> ArchConfig:

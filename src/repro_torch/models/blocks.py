@@ -7,9 +7,17 @@ leaf. The port runs the period with a Python loop where the reference
 runs ``lax.scan``. Blocks here are GQA (global or sliding-window) or MLA
 attention followed by an MLP or an MoE layer (dense, MoE and VLM
 stacks; an encoder-decoder's encoder blocks are non-causal GQA + MLP, its
-decoder blocks add cross-attention against the encoder's output), and
-the pure-SSM Mamba block (``family == "ssm"``: norm + Mamba, no FFN);
-hybrid (Jamba) stacks come with a later slice.
+decoder blocks add cross-attention against the encoder's output), the
+pure-SSM Mamba block (``family == "ssm"``: norm + Mamba, no FFN), and the
+hybrid (Jamba) stack's blocks: a Mamba or a GQA mixer, each followed by
+an MLP or an MoE layer, so one period can mix Mamba and attention layers
+and their ``{"ssm": MambaState}`` and ``{"kv": KVCache}`` caches.
+
+A Mamba mixer's prefill runs K3 (``kernels.selective_scan``) and its
+training runs the model's own chunked scan under autograd
+(``models/mamba.py``), as the reference's training differentiates its
+own scan: K3 has no backward in either package, so the train scan is the
+reference's semantics, not a fallback.
 """
 from __future__ import annotations
 
@@ -93,19 +101,25 @@ def build_plan(cfg, *, decoder: bool = True,
 
 
 def _supported(kind: LayerKind, cfg):
-    if cfg.family == "ssm":
-        if kind.mixer == "mamba" and not kind.moe:
-            return
-    elif (cfg.family in ("dense", "moe", "vlm", "encdec")
-          and kind.mixer in ("attn", "mla")
-          and (not kind.cross or cfg.family == "encdec")):
+    """Refuse a block no config of the reference has, with what the port
+    runs."""
+    if kind.mixer == "mamba":
+        # an ssm stack's Mamba block has no FFN: the reference drops an
+        # MoE there silently, so the port refuses one
+        ok = cfg.family == "hybrid" or (cfg.family == "ssm" and not kind.moe)
+    elif cfg.family == "hybrid":
+        ok = kind.mixer == "attn"
+    else:
+        ok = cfg.family in ("dense", "moe", "vlm", "encdec")
+    if ok and (not kind.cross or cfg.family == "encdec"):
         return
     raise NotImplementedError(
-        f"{kind} blocks ({cfg.family}) are ported with a later slice: "
-        "hybrid (Jamba) stacks; the port runs dense, MoE and VLM attention "
-        "stacks (GQA, sliding-window, MLA), encoder-decoder stacks (a "
-        "non-causal encoder, a decoder with cross-attention) and pure-SSM "
-        "Mamba blocks")
+        f"{kind} blocks ({cfg.family}) are in no config of the reference: "
+        "the port runs dense, MoE and VLM attention stacks (GQA, "
+        "sliding-window, MLA), encoder-decoder stacks (a non-causal "
+        "encoder, a decoder with cross-attention), pure-SSM Mamba blocks "
+        "(no FFN, so no MoE) and hybrid stacks of Mamba or GQA mixers, "
+        "each followed by an MLP or an MoE layer")
 
 
 def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
@@ -115,9 +129,11 @@ def block_init(generator, cfg, kind: LayerKind, dtype=torch.bfloat16,
     if kind.mixer == "mamba":
         p["mamba"] = mamba_lib.mamba_init(generator, cfg, dtype,
                                           device=device)
-        return p  # pure-mamba block: no separate FFN
-    init = attn_lib.mla_init if kind.mixer == "mla" else attn_lib.gqa_init
-    p["attn"] = init(generator, cfg, dtype, device=device)
+        if cfg.family == "ssm":
+            return p  # pure-mamba block: no separate FFN
+    else:
+        init = attn_lib.mla_init if kind.mixer == "mla" else attn_lib.gqa_init
+        p["attn"] = init(generator, cfg, dtype, device=device)
     if kind.cross:
         p["norm_cross"] = init_rms_scale(cfg.d_model, device=device)
         p["cross"] = attn_lib.gqa_init(generator, cfg, dtype, device=device)
@@ -180,13 +196,14 @@ def _build_cross_kv(params, enc_out, cfg) -> attn_lib.KVCache:
 
 def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
                 cache=None, pos: Optional[int] = None, enc_out=None):
-    """Pre-norm residual block: attention (GQA or MLA), then (a decoder
-    block of an encoder-decoder) cross-attention against ``enc_out`` —
-    or, in decode, against the cache's ``cross_kv`` — then MLP or MoE; or
-    (SSM) Mamba with no second residual. ``mode``: train | prefill |
-    decode. Returns (x, cache, aux_loss) — the MoE layer's load-balance
-    loss, else 0; ``cache`` is updated in place (train takes none;
-    prefill writes the encoder's K/V into ``cross_kv``)."""
+    """Pre-norm residual block: the mixer — attention (GQA or MLA) or
+    Mamba — then (a decoder block of an encoder-decoder) cross-attention
+    against ``enc_out`` — or, in decode, against the cache's ``cross_kv``
+    — then MLP or MoE; an ssm stack's Mamba block has no second residual.
+    ``mode``: train | prefill | decode. Returns (x, cache, aux_loss) — the
+    MoE layer's load-balance loss, else 0; ``cache`` is updated in place
+    (train takes none; prefill writes the encoder's K/V into
+    ``cross_kv``)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -194,17 +211,19 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
         ssm = cache.get("ssm") if cache else None
         y, _ = mamba_lib.mamba_apply(params["mamba"], h, cfg, state=ssm,
                                      mode=mode)
-        return x + y, cache, aux
-    kv = cache.get("kv") if cache else None
-    if kind.mixer == "mla":
-        y, _ = attn_lib.mla_apply(params["attn"], h, cfg=cfg,
-                                  theta=kind.theta, cache=kv, pos=pos,
-                                  mode=mode)
+        if cfg.family == "ssm":
+            return x + y, cache, aux
     else:
-        y, _ = attn_lib.gqa_apply(params["attn"], h, cfg=cfg,
-                                  window=kind.window, theta=kind.theta,
-                                  cache=kv, pos=pos, mode=mode,
-                                  causal=kind.causal)
+        kv = cache.get("kv") if cache else None
+        if kind.mixer == "mla":
+            y, _ = attn_lib.mla_apply(params["attn"], h, cfg=cfg,
+                                      theta=kind.theta, cache=kv, pos=pos,
+                                      mode=mode)
+        else:
+            y, _ = attn_lib.gqa_apply(params["attn"], h, cfg=cfg,
+                                      window=kind.window, theta=kind.theta,
+                                      cache=kv, pos=pos, mode=mode,
+                                      causal=kind.causal)
     x = x + y
     if kind.cross:
         hc = rms_norm(x, params["norm_cross"], cfg.norm_eps)

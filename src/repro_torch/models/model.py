@@ -1,5 +1,5 @@
-"""The models: the causal LM (dense, MoE, SSM, and VLM with its image
-prefix) and the encoder-decoder — params, the training loss, caches,
+"""The models: the causal LM (dense, MoE, SSM, hybrid, and VLM with its
+image prefix) and the encoder-decoder — params, the training loss, caches,
 prefill and decode.
 
 Layer execution is ``prefix -> period x n -> suffix`` with the period's
@@ -46,9 +46,9 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
     ``jax.random``: tests that compare the two convert JAX params with
     ``weights.params_from_jax``."""
     device = resolve_device(device)
-    if cfg.family not in ("dense", "moe", "ssm", "vlm", "encdec"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
         raise NotImplementedError(
-            f"{cfg.family!r} models are ported with a later slice")
+            f"{cfg.family!r} is no family of the reference's models")
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     params: Dict[str, Any] = {}

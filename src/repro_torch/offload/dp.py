@@ -118,8 +118,8 @@ class DataParallelOffloadEngine:
                  ranks: int = 2, params=None, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"the offload engine drives dense stacks (got "
-                f"{cfg.family!r}); other families come with later slices")
+                f"the offload engine drives dense stacks only, as the "
+                f"reference's engine does (got {cfg.family!r})")
         if ocfg.schedule != "vertical":
             raise ValueError("the data-parallel engine runs the vertical "
                              f"schedule (got {ocfg.schedule!r})")

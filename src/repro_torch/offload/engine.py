@@ -560,8 +560,8 @@ class OffloadEngine:
                  params=None, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"the offload engine drives dense stacks (got "
-                f"{cfg.family!r}); other families come with later slices")
+                f"the offload engine drives dense stacks only, as the "
+                f"reference's engine does (got {cfg.family!r})")
         plan = blk.build_plan(cfg)
         if len(plan.period) != 1 or plan.prefix or plan.suffix:
             raise ValueError("the offload engine drives homogeneous stacks "

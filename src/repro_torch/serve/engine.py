@@ -141,7 +141,8 @@ class ServeEngine:
                  params=None, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"ServeEngine supports dense stacks (got {cfg.family!r})")
+                f"ServeEngine supports dense stacks only, as the reference's "
+                f"engine does (got {cfg.family!r})")
         self.cfg = cfg
         self.scfg = scfg
         self.device = resolve_device(device)

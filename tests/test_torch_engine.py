@@ -2,8 +2,7 @@
 port: the bitwise invariants of the reference's engine tests (alpha
 split, lookahead depth, horizontal == vertical at M = 1), agreement with
 the port's in-memory oracle, the mid-plan fault unwind, the default
-device and the refusals of what later slices bring."""
-import dataclasses
+device and the refusals it shares with the reference's engine."""
 import tempfile
 
 import numpy as np
@@ -175,7 +174,7 @@ def test_engine_defaults_to_the_card(monkeypatch):
 
 
 def test_later_slices_raise_naming_them():
-    with pytest.raises(NotImplementedError, match="families come with"):
+    with pytest.raises(NotImplementedError, match="dense stacks only"):
         with tempfile.TemporaryDirectory() as d:
             OffloadEngine(get_smoke("falcon-mamba-7b"), OffloadConfig(), 0,
                           d, device="cpu")
@@ -195,6 +194,9 @@ def test_later_slices_raise_naming_them():
                 device="cpu")
     with pytest.raises(ValueError, match="param_dtype"):
         OffloadConfig(param_dtype="float16")
-    with pytest.raises(NotImplementedError, match="slice"):
-        mdl.init_params(dataclasses.replace(CFG, family="hybrid"),
-                        device="cpu")
+    # the hybrid family runs in memory, and the engine refuses it as the
+    # reference's does
+    with pytest.raises(NotImplementedError, match="as the reference's"):
+        with tempfile.TemporaryDirectory() as d:
+            OffloadEngine(get_smoke("jamba-v0.1-52b"), OffloadConfig(), 0, d,
+                          device="cpu")

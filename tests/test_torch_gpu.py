@@ -56,7 +56,8 @@ def _k1_cases(with_q0):
     forward only) against them (``S`` is then (Sq, Skv)), in bf16 and in
     f32 (its bf16 training computes the encoder in f32), its decoder's
     causal 448, whisper-base-smoke's cross-attention (16 against 32) in
-    f32, and internvl2's 64:8 group at hd 128."""
+    f32, internvl2's 64:8 group at hd 128, and jamba-v0.1-52b's attention
+    layer in its 2 x 1024 prefill (32:8 at hd 128)."""
     masks = [(True, None, 0), (False, None, 0),
              (True, 40, 5) if with_q0 else (True, 48, 0)]
     cases = [pytest.param(2, 8, 2, 200, 128, dt, c, w, q0,
@@ -119,6 +120,7 @@ def _k1_cases(with_q0):
         ("whisper-smoke-cross-f32-16x32", 2, 4, 4, (16, 32), 32, "float32",
          False, None, 0),
         ("internvl2-g8-1024", 1, 64, 8, 1024, 128, "bfloat16", True, None, 0),
+        ("jamba-g4-2x1024", 2, 32, 8, 1024, 128, "bfloat16", True, None, 0),
     ]
     if not with_q0:   # the backward's table: no q0, no decode, and two
         # GPT-65B rows
@@ -195,6 +197,28 @@ def test_smoke_archs_on_the_card_match_the_cpu(arch):
     failures, gaps = smoke.archs_smoke_parity(torch, print, archs=(arch,))
     assert not failures, failures
     assert set(gaps) == {arch}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "falcon-mamba-7b"])
+def test_mamba_smoke_archs_on_the_card_match_the_cpu(arch):
+    """chip_smoke.py's gate (w) for a SMOKE config with Mamba layers, f32:
+    the training step (the model's chunked scan under autograd on both
+    devices; Jamba's attention layer through K1's kernels both ways) within
+    1e-5 in the loss and each gradient leaf (of its largest element), the
+    prefill (K3 on the card) and 4 decode steps, each from the CPU's
+    caches, within 1e-4."""
+    _need_card()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.ARCHS_SMOKE_TOL == 1e-5 and smoke.MAMBA_PARITY_TOL == 1e-4
+    failures, gaps = smoke.archs_smoke_parity(torch, print, archs=(arch,))
+    assert not failures, failures
+    assert gaps[arch]["decode_from_cpu_state"]
 
 
 @pytest.mark.gpu
@@ -509,7 +533,9 @@ _K3_CASES = (
                     id="bf16-model-width-S333"),
        pytest.param("float32", 2, 100, 256, 1, 256, id="f32-st1"),
        pytest.param("float32", 1, 77, 301, 3, 7, id="f32-st3-di301"),
-       pytest.param("bfloat16", 2, 100, 999, 16, 7, id="bf16-di999")])
+       pytest.param("bfloat16", 2, 100, 999, 16, 7, id="bf16-di999"),
+       pytest.param("bfloat16", 2, 1024, 8192, 16, 256,
+                    id="bf16-jamba-prefill-B2-S1024")])
 
 
 @pytest.mark.gpu

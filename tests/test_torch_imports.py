@@ -33,7 +33,8 @@ print(",".join(names), bad)
 #: in-memory Trainer and its checkpoints, the training CLI, the kernel
 #: benchmark and the six examples), whose scripts parse their arguments
 #: only inside ``main``, and the attention architectures (MoE, its
-#: expert-parallel seam and the five configs)
+#: expert-parallel seam and the five configs), and the hybrid family's
+#: config
 REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.obs.registry", "repro_torch.offload.autotune",
             "repro_torch.offload.dp", "repro_torch.offload.engine",
@@ -54,7 +55,8 @@ REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.configs.starcoder2_7b",
             "repro_torch.configs.gemma3_1b",
             "repro_torch.configs.deepseek_v2_lite_16b",
-            "repro_torch.configs.qwen3_moe_235b_a22b"}
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.configs.jamba_v01_52b"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():

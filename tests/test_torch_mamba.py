@@ -474,14 +474,22 @@ def test_smoke_model_prefill_decode_match_jax_bf16():
 
 
 def test_hybrid_and_moe_stacks_raise_naming_the_later_slice():
+    """A Jamba-like stack (falcon-mamba-smoke's Mamba with an attention
+    layer every other layer) now builds its caches: a Mamba state and a
+    KV cache in one tree. A Mamba block with MoE in an ssm stack stays
+    refused: the reference's pure-SSM block has no FFN and drops the MoE
+    silently."""
     jamba_like = dataclasses.replace(get_smoke(NAME), family="hybrid",
                                      attn_every=2, attn_offset=1,
                                      num_heads=4, num_kv_heads=4,
                                      head_dim=32, d_ff=512)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mdl.init_caches(jamba_like, 1, 8, device="cpu")
+    caches = mdl.init_caches(jamba_like, 1, 8, device="cpu")
+    ssm, kv = caches["prefix"][0]["ssm"], caches["prefix"][1]["kv"]
+    assert isinstance(ssm, mamba.MambaState)
+    assert ssm.h.shape == (1, jamba_like.d_inner, jamba_like.ssm_state)
+    assert kv.k.shape == (1, 4, 8, 32)
     ssm_moe = dataclasses.replace(get_smoke(NAME), num_experts=4,
                                   moe_top_k=2, moe_d_ff=64)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no FFN"):
         blk.block_init(None, ssm_moe, blk.layer_kind(ssm_moe, 0),
                        device="cpu")

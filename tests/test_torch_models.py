@@ -301,11 +301,18 @@ def test_allocations_default_to_the_card(monkeypatch, alloc):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_unsupported_layers_raise_naming_the_later_slice(arch):
-    """The family still to port (hybrid): its reference config's fields,
-    through the port's ArchConfig, raise naming the later slice."""
+    """The hybrid family, once refused, now builds: the port's config has
+    the reference's fields (full and SMOKE), and ``init_params`` /
+    ``init_caches`` build its SMOKE model on the CPU (a Mamba + MLP
+    block, then GQA + MoE)."""
     from repro.configs import get_smoke as jget_smoke
-    cfg = _port_cfg(jget_smoke(arch))
-    with pytest.raises(NotImplementedError, match="slice"):
-        mdl.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        mdl.init_params(cfg, 0, device="cpu")
+    from repro_torch.configs import get_smoke
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
+    cfg = get_smoke(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_smoke(arch))
+    caches = mdl.init_caches(cfg, 1, 8, device="cpu")
+    assert [sorted(c) for c in caches["prefix"]] == [["ssm"], ["kv"]]
+    params = mdl.init_params(cfg, 0, device="cpu")
+    assert [sorted(b) for b in params["prefix"]] == [
+        ["mamba", "mlp", "norm1", "norm2"], ["attn", "moe", "norm1", "norm2"]]
