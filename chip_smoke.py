@@ -146,10 +146,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in f32, card vs CPU: the training step's loss and gradients within
    1e-5, prefill and 4 decode steps' logits within 1e-4, each decode step
    from the CPU's caches.
+11. mesh — the launch layer on MESH_RANKS = 4 ``torch.distributed``
+   ranks on a 2 x 2 ("data", "model") mesh that share the card over gloo
+   (NCCL refuses two ranks on one GPU), spawned once after the unsharded
+   references ran here and freed the card (the ranks only load the
+   kernels built here): (m1) deepseek-v2-lite-16b's MoE layer at full
+   width, bf16, 4 x 1024 tokens, expert-parallel over "model" (32 experts
+   a rank, the all-to-all dispatch): at capacity 8 against ``moe_apply``
+   in one process (relative norm within REL_TOL, aux within 1e-5), EP
+   dispatches on every rank, the drops at 1.25 reported; (m2)
+   deepseek-v2-lite-16b at full width and 3 layers (1.670 B params),
+   bf16, 4 x 1024 tokens, 1 Adam step, in the reference's baseline
+   lowering (FSDP over "model", the batch over "data") and optimized
+   lowering (``fully_shard``, the batch over every axis, EP, the
+   activation spec and gradient shardings), each against the unsharded
+   step from the same weights and batch: losses, grad norms, each leaf's
+   update by relative norm (the baseline's; the optimized mode's in a
+   third run at capacity 8 over 4 x 256 tokens, where nothing drops),
+   each rank's collective calls and bytes by kind equal to their closed
+   form from the spec tree, K1 launches on every rank; (m3)
+   qwen3-moe-235b-a22b's SMOKE config, optimized, f32: the card's ranks
+   against the same ranks on the CPU, loss and gradients within 1e-5.
 
 Prints every measurement (``serve stats``, ``train stats``, ``dp stats``,
-``mamba stats``, ``entry stats``, ``archs stats`` and ``hybrid stats``
-JSON lines, the autotuner's decision
+``mamba stats``, ``entry stats``, ``archs stats``, ``hybrid stats`` and
+``mesh stats`` JSON lines, the autotuner's decision
 log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``.
@@ -161,6 +182,7 @@ log, a ``{"kernels": [...]}`` line with each kernel's numbers), the
     python3 chip_smoke.py --phases entry
     python3 chip_smoke.py --phases kernels,archs
     python3 chip_smoke.py --phases hybrid
+    python3 chip_smoke.py --phases mesh
 """
 from __future__ import annotations
 
@@ -572,6 +594,63 @@ JAMBA_TRAIN_M = 2
 # the Mamba training check on the card (the model's chunked scan under
 # autograd, K1's backward at hd 32 in Jamba's attention layer)
 HYBRID_SMOKE_ARCHS = ("jamba-v0.1-52b", "falcon-mamba-7b")
+# the mesh phase: MESH_RANKS torch.distributed ranks on a 2 x 2 ("data",
+# "model") mesh, all on the one card, joined over gloo (NCCL refuses two
+# ranks on one GPU; tools/gloo_cuda_probe.py: gloo takes CUDA tensors for
+# every collective the port uses). A rank that fails, or ranks still
+# running after MESH_TIMEOUT seconds, fail the phase.
+MESH_RANKS, MESH_SHAPE, MESH_BACKEND, MESH_TIMEOUT = 4, (2, 2), "gloo", 400
+# (m1) deepseek-v2-lite-16b's MoE at full width (d 2048, 64 routed experts
+# + 2 shared, top-6, moe_d_ff 1408), bf16, 4 x 1024 tokens, EP over
+# "model" (32 experts a rank): at capacity 8 (nothing drops on either side)
+# against moe_apply in one process at the kernels' bf16 relative-norm
+# bound (the experts' products run at other row counts, so cuBLAS may
+# round otherwise) and the aux loss within 1e-5 (the f32 router on the
+# same bf16 tokens); at 1.25 the drops are reported
+M1_B, M1_S, M1_CAPS = 4, 1024, (8.0, 1.25)
+M1_REL_TOL, M1_AUX_TOL = REL_TOL, 1e-5
+# (m2) deepseek-v2-lite-16b at full width, depth 27 -> 3 (the dense first
+# layer + 2 stacked MoE periods, ~1.67 B params), bf16, 4 x 1024 tokens,
+# M2_STEPS Adam step at lr M2_LR, in both of the reference's lowerings,
+# against the unsharded step from the same weights and batch. Tolerances:
+# the baseline computes the unsharded step's math (the MoE over the
+# gathered global batch) in another order, so losses within 1e-2 and
+# grad norms within 5e-2 relative, as bf16 rounding moves them; the
+# optimized mode at capacity 1.25 drops other assignments (EP's capacity
+# is per owner shard and local expert), so the reference's own 2 % and
+# 10 % (tests/test_optimized_sharding.py). The updates: each leaf's
+# update (f32 master less the initial params) against the unsharded
+# step's by relative norm, within M2_UPDATE_RTOL. Adam's first updates
+# are about lr sign(g), so bf16 rounding that flips the sign of a small
+# gradient moves it: 0.03-0.19 on the SMOKE configs' leaves on CPU ranks.
+# The controls it fails: no update reads 1; the unsharded step on half
+# the batch reads 0.71-0.93 there, and the phase measures it again on
+# the card (its least leaf must stay above the limit). At capacity 1.25
+# the optimized mode's experts see other drops (0.58 on qwen3-moe's
+# SMOKE leaves), so its update is held in a third run, the optimized
+# mode at capacity M2_EXACT_CF (nothing drops on either side: both
+# counts must be 0), against the unsharded step at that capacity, at the
+# baseline's limits. Its sequences are cut to M2_EXACT_S tokens: EP's
+# second capacity grows as the square of the factor, and at capacity 8
+# over 1024 tokens the four ranks' expert buffers took the H100 past its
+# 80 GB. One step a run, not two: with two steps a mode and the third
+# run the phase took 208 s on the H100 against the 150 s it may take,
+# and the update gates hold the first step's update.
+M2_LAYERS, M2_B, M2_S, M2_STEPS, M2_LR = 3, 4, 1024, 1, 1e-4
+M2_LOSS_RTOL = {"baseline": 1e-2, "optimized": 2e-2, "exact": 1e-2}
+M2_GN_RTOL = {"baseline": 5e-2, "optimized": 0.1, "exact": 5e-2}
+M2_UPDATE_RTOL = 0.4
+M2_EXACT_CF, M2_EXACT_S = 8.0, 256
+# (m3) qwen3-moe-235b-a22b's SMOKE config, optimized mode (EP), f32, 8 x 32
+# tokens: the card's ranks against the same ranks on the CPU (ranks keep
+# one thread), a step's loss and gradients within 1e-5 (gradients of each
+# leaf's largest element)
+M3_ARCH, M3_B, M3_S, M3_TOL = "qwen3-moe-235b-a22b", 8, 32, 1e-5
+# the phase's predicted wall time: three unsharded references ~25 s, two
+# updates to disk ~10 s, 4 ranks up ~10 s, (m2) one step a run: ~30 s
+# baseline, ~20 s optimized, ~20 s the exact run (gloo moves ~5 GB a
+# rank a step), (m1) + (m3) ~10 s
+MESH_PREDICTED_S = 125.0
 
 
 def nvidia_smi_line() -> str:
@@ -3318,6 +3397,306 @@ def jamba_train_gates(torch, fa, report, full):
     return failures, stats
 
 
+def _m2_reference(torch, cfg, tokens, capacity_factor, *, path=None,
+                  against=None):
+    """The unsharded step of (m2) on the card, M2_STEPS Adam steps at the
+    MoE's ``capacity_factor`` (``None``: 1.25): losses, grad norms and
+    dropped assignments. The update (the f32 masters less the initial
+    params) is saved to ``path`` (every rank cuts its shard of it) and,
+    with ``against`` (another run's update on the host), held against it
+    leaf by leaf by relative norm. Frees the card before it returns."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.core.schedules import ScheduleConfig, make_train_step
+    from repro_torch.launch import sharded
+    from repro_torch.models import model as mdl
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import AdamConfig, init_state
+
+    torch.cuda.reset_peak_memory_stats()
+    params = mdl.init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+    init = tree.tree_map(lambda a: a.clone(), params)
+    opt = init_state(params)
+    step = make_train_step(cfg, ScheduleConfig("vertical"),
+                           AdamConfig(lr=M2_LR))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    out = {"losses": [], "grad_norms": [], "seconds": []}
+    moe_lib.reset_dropped()
+    with sharded.capacity(capacity_factor):
+        for _ in range(M2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["losses"].append(float(met["loss"]))
+            out["grad_norms"].append(float(met["grad_norm"]))
+    out["dropped"] = moe_lib.dropped_count()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["params"] = sum(t.numel() for t in tree.leaves(params))
+    update = tree.tree_map(lambda m, p: (m - p.float()).cpu(), opt.master,
+                           init)
+    if against is not None:
+        out["update_rel_by_leaf"] = {
+            name: float((u.cuda() - a.cuda()).norm() / a.cuda().norm())
+            for (name, u), a in zip(tree.flatten_with_path(update),
+                                    tree.leaves(against), strict=True)}
+    if path is not None:
+        t0 = time.perf_counter()
+        torch.save(update, path)
+        out["save_s"] = time.perf_counter() - t0
+    del params, init, opt, step, met, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, update
+
+
+def phase_mesh(torch, report, workroot):
+    """The launch layer on MESH_RANKS ranks that share the card (gloo):
+    (m1) expert-parallel MoE at deepseek-v2-lite-16b's full width against
+    ``moe_apply``; (m2) the sharded train step in the reference's two
+    lowerings (baseline: FSDP over "model", the batch over "data";
+    optimized: ``fully_shard``, the batch over every axis, EP, the
+    activation spec and gradient shardings) at deepseek-v2-lite-16b's full
+    width and 3 layers against the unsharded step from the same weights and
+    batch (losses, grad norms, every f32 master), each rank's collective
+    bytes by kind equal to their closed form from the spec tree; (m3)
+    qwen3-moe's SMOKE config, optimized, f32: the card's ranks against the
+    same ranks on the CPU within 1e-5. The unsharded references run first
+    in this process and free the card before the ranks start; the ranks
+    only load the kernels this process built. Returns (failures, stats)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch import sharded
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model as mdl
+    from repro_torch.models import moe as moe_lib
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()    # the ranks share the card with this process
+    failures, stats, wall = [], {}, {}
+    t_phase = time.perf_counter()
+    report(f"mesh: {MESH_RANKS} ranks on a {MESH_SHAPE[0]} x "
+           f"{MESH_SHAPE[1]} (data, model) mesh sharing the one card, "
+           f"backend {MESH_BACKEND} (every collective on the card's "
+           f"tensors); "
+           f"predicted wall {MESH_PREDICTED_S:.0f} s")
+    full = get_config("deepseek-v2-lite-16b")
+    # (m1) the single-process reference
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    mp = moe_lib.moe_init(g, full, torch.bfloat16, device="cuda")
+    g.manual_seed(12)
+    x = (torch.randn((M1_B, M1_S, full.d_model), generator=g,
+                     device="cuda") * 0.3).to(torch.bfloat16)
+    m1_ref = {}
+    for cf in M1_CAPS:
+        moe_lib.reset_dropped()
+        y, aux = moe_lib.moe_apply(mp, x, full, capacity_factor=cf)
+        m1_ref[cf] = (y.cpu(), float(aux), moe_lib.dropped_count())
+    del mp, x, y, aux
+    # (m2) the unsharded references: the step at 1.25, the control (the
+    # same step on half the batch) and the step at M2_EXACT_CF
+    cfg = dataclasses.replace(full, num_layers=M2_LAYERS)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (M2_B, M2_S)).astype(np.int64)
+    ref_path = os.path.join(workroot, "mesh_m2_update.pt")
+    exact_path = os.path.join(workroot, "mesh_m2_exact_update.pt")
+    ref, update = _m2_reference(torch, cfg, tokens, None, path=ref_path)
+    ctrl, _ = _m2_reference(torch, cfg, tokens[:M2_B // 2], None,
+                            against=update)
+    del update, _
+    exact_tokens = np.ascontiguousarray(tokens[:, :M2_EXACT_S])
+    exact, _ = _m2_reference(torch, cfg, exact_tokens, M2_EXACT_CF,
+                             path=exact_path)
+    del _
+    ctrl_rel = ctrl["update_rel_by_leaf"]
+    ctrl_min = min(ctrl_rel, key=ctrl_rel.get)
+    report(f"(m2) unsharded reference: {cfg.name} at full width, "
+           f"{M2_LAYERS} layers ({ref['params'] / 1e9:.3f} B params), bf16, "
+           f"{M2_B} x {M2_S} tokens: losses {ref['losses']}, grad norms "
+           f"{ref['grad_norms']}, {ref['seconds']} s/step, dropped "
+           f"{ref['dropped']}, update saved in {ref['save_s']:.1f} s, "
+           f"max_memory_allocated "
+           f"{ref['max_memory_allocated'] / 2**30:.2f} GiB; the control "
+           f"(half the batch) reads update rel {ctrl_rel[ctrl_min]:.3f} "
+           f"at its least leaf ({ctrl_min}; the limit {M2_UPDATE_RTOL}); "
+           f"at capacity {M2_EXACT_CF} over {M2_B} x {M2_EXACT_S} tokens: "
+           f"losses {exact['losses']}, dropped {exact['dropped']}")
+    # (m3) the same inputs for the card's and the CPU's ranks
+    scfg = get_smoke(M3_ARCH)
+    sp = tree.tree_map(lambda a: a.numpy(), mdl.init_params(
+        scfg, 3, dtype=torch.float32, device="cpu"))
+    stoks = np.random.default_rng(1).integers(
+        0, scfg.vocab_size, (M3_B, M3_S)).astype(np.int64)
+    wall["references"] = time.perf_counter() - t0
+
+    m1_job = {"cfg": full, "mesh": MESH_SHAPE, "seed": 11, "x_seed": 12,
+              "x_shape": (M1_B, M1_S, full.d_model),
+              "dtype": torch.bfloat16, "capacities": list(M1_CAPS)}
+    m2_job = {"cfg": cfg, "mesh": MESH_SHAPE, "seed": 0,
+              "dtype": torch.bfloat16, "tokens": tokens, "lr": M2_LR,
+              "steps": M2_STEPS}
+    m2 = {"baseline": dict(m2_job, mode="baseline", reference=ref_path),
+          "optimized": dict(m2_job, mode="optimized"),
+          "exact": dict(m2_job, mode="optimized", capacity=M2_EXACT_CF,
+                        reference=exact_path, tokens=exact_tokens)}
+    m3 = {dev: {"cfg": scfg, "mesh": MESH_SHAPE, "mode": "optimized",
+                "params": sp, "tokens": stoks, "dtype": torch.float32,
+                "steps": 1, "grads": True, "device": dev}
+          for dev in ("cuda", "cpu")}
+    jobs = [("ep", m1_job), ("step", m2["baseline"]),
+            ("step", m2["optimized"]), ("step", m2["exact"]),
+            ("step", m3["cuda"]), ("step", m3["cpu"])]
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(sharded.run_jobs, MESH_RANKS,
+                          backend=MESH_BACKEND, device="cuda:0",
+                          timeout=MESH_TIMEOUT, args=(jobs,))
+    finally:
+        for path in (ref_path, exact_path):
+            if os.path.exists(path):
+                os.remove(path)
+    wall["ranks"] = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    # (m1)
+    ep = r0[0]
+    y_ref, aux_ref, drop_ref = m1_ref[8.0]
+    y = ep[8.0]["y"]
+    rel = float((y.float() - y_ref.float()).norm() / y_ref.float().norm())
+    aux_gap = abs(ep[8.0]["aux"] - aux_ref)
+    disp = [r[0]["dispatches"] for r in ranks]
+    ok = (rel <= M1_REL_TOL and aux_gap <= M1_AUX_TOL
+          and all(d[cf] > 0 for d in disp for cf in M1_CAPS)
+          and ep["dropped"][8.0] == 0 and drop_ref == 0)
+    stats["m1"] = {"rel_err": rel, "aux_gap": aux_gap,
+                   "max_abs_err": float((y.float() - y_ref.float()).abs()
+                                        .max()),
+                   "ep_dispatches_by_rank": [d[8.0] for d in disp],
+                   "dropped_ep": ep["dropped"],
+                   "dropped_moe_apply": {cf: m1_ref[cf][2] for cf in M1_CAPS},
+                   "ep_seconds": ep["seconds"]}
+    report(f"(m1) EP MoE {full.name} full width ({full.num_experts} "
+           f"experts, top-{full.moe_top_k}, {full.num_shared_experts} shared,"
+           f" {full.num_experts // MESH_SHAPE[1]} a rank), bf16, {M1_B} x "
+           f"{M1_S} tokens: capacity 8 vs moe_apply rel {rel:.3e} (tol "
+           f"{M1_REL_TOL}), aux {aux_gap:.2e} (tol {M1_AUX_TOL}), EP "
+           f"dispatches by rank {[d[8.0] for d in disp]}; dropped at 1.25: "
+           f"EP {ep['dropped'][1.25]} of {M1_B * M1_S * full.moe_top_k}, "
+           f"moe_apply {m1_ref[1.25][2]} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(m1) EP MoE: {stats['m1']}")
+
+    # (m2)
+    refs = {"baseline": ref, "optimized": ref, "exact": exact}
+    for k, mode in ((1, "baseline"), (2, "optimized"), (3, "exact")):
+        rs = [r[k] for r in ranks]
+        a, rf = rs[0], refs[mode]
+        steps = len(rf["losses"])
+        loss_gap = max(abs(a["losses"][i] - rf["losses"][i])
+                       / rf["losses"][i] for i in range(steps))
+        gn_gap = max(abs(a["grad_norms"][i] - rf["grad_norms"][i])
+                     / rf["grad_norms"][i] for i in range(steps))
+        counts_ok = all(sharded.counts_equal(c, e) for r in rs
+                        for c, e in zip(r["counts"], r["expected_counts"],
+                                        strict=True))
+        same = all(r["losses"] == a["losses"] for r in rs)
+        ep_ok = (a["use_ep"] == (mode != "baseline")
+                 and (min(r["ep_dispatches"] for r in rs) > 0)
+                 == (mode != "baseline"))
+        k1 = [r["k1_launches"] for r in rs]
+        ok = (loss_gap <= M2_LOSS_RTOL[mode] and gn_gap <= M2_GN_RTOL[mode]
+              and counts_ok and same and ep_ok and len(a["losses"]) == steps
+              and all(f > 0 and b > 0 for f, b in k1))
+        st = {"losses": a["losses"], "grad_norms": a["grad_norms"],
+              "loss_rel_gap": loss_gap, "grad_norm_rel_gap": gn_gap,
+              "s_per_step_by_rank": [r["seconds"] for r in rs],
+              "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                               for r in rs],
+              "collectives_step1_rank0": a["counts"][0],
+              "collectives_closed_form_rank0": a["expected_counts"][0],
+              "counts_equal_closed_form": counts_ok,
+              "batch_axes": a["batch_axes"], "use_ep": a["use_ep"],
+              "ep_dispatches_by_rank": [r["ep_dispatches"] for r in rs],
+              "ep_dropped": sum(r["ep_dropped"] for r in rs),
+              "k1_launches_by_rank": k1,
+              "job_seconds": max(r["job_seconds"] for r in rs)}
+        upd = ""
+        if "update_sq" in a:
+            # each leaf's relative norm over every rank's shard (a leaf
+            # replicated on some axis is counted once a replica in both
+            # sums, so the ratio holds)
+            sq = [[sum(r["update_sq"][j][i] for r in rs) for i in (0, 1)]
+                  for j in range(len(a["update_leaves"]))]
+            rel = {n: math.sqrt(d / w) if w else math.inf
+                   for n, (d, w) in zip(a["update_leaves"], sq)}
+            worst = max(rel, key=rel.get)
+            ok = (ok and rel[worst] <= M2_UPDATE_RTOL
+                  and ctrl_rel[ctrl_min] > M2_UPDATE_RTOL)
+            st["update_rel_by_leaf"] = rel
+            upd = (f"updates rel {rel[worst]:.3f} at the worst leaf "
+                   f"({worst}; tol {M2_UPDATE_RTOL}), ")
+        if mode == "exact":
+            ok = ok and st["ep_dropped"] == 0 and rf["dropped"] == 0
+            upd += f"dropped {st['ep_dropped']} / {rf['dropped']}, "
+        stats[f"m2_{mode}"] = st
+        gb = {kind: round(v["result_bytes"] / 1e9, 4)
+              for kind, v in a["counts"][0].items()}
+        report(f"(m2) {mode}: batch over {a['batch_axes']}, EP "
+               f"{a['use_ep']}; losses {a['losses']} vs {rf['losses']} "
+               f"(rel {loss_gap:.2e}, tol {M2_LOSS_RTOL[mode]}), grad norms "
+               f"rel {gn_gap:.2e} (tol {M2_GN_RTOL[mode]}), {upd}"
+               f"collectives == closed form {counts_ok}; s/step by rank "
+               f"{[[round(t, 3) for t in r['seconds']] for r in rs]}; "
+               f"max_memory_allocated by rank "
+               f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in rs]}"
+               f" GiB; rank 0 result GB by kind a step {gb}; K1 launches "
+               f"(fwd, bwd) by rank {k1} -> {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(m2) {mode}: " + json.dumps(
+                {k: v for k, v in st.items() if k != "update_rel_by_leaf"}))
+
+    # (m3)
+    card, host = r0[4], r0[5]
+    loss_gap = abs(card["losses"][0] - host["losses"][0])
+    grad_gap = max(float((a - b).abs().max()) / max(1.0, float(
+        b.abs().max())) for a, b in zip(tree.leaves(card["grads"]),
+                                         tree.leaves(host["grads"])))
+    ok = (loss_gap <= M3_TOL and grad_gap <= M3_TOL and card["use_ep"]
+          and sharded.counts_equal(card["counts"][0], host["counts"][0]))
+    stats["m3"] = {"loss_gap": loss_gap, "grad_gap_scaled": grad_gap,
+                   "loss_card": card["losses"][0],
+                   "loss_cpu": host["losses"][0]}
+    report(f"(m3) {scfg.name} optimized (EP), f32, {M3_B} x {M3_S}: card "
+           f"ranks vs CPU ranks loss {loss_gap:.3e}, gradients "
+           f"{grad_gap:.3e} (of each leaf's max; tol {M3_TOL}) -> "
+           f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(m3) card vs CPU: {stats['m3']}")
+
+    stats["launches"] = {
+        f"train_{mode}": {f"k1_{d}": sum(r[k]["k1_launches"][i]
+                                         for r in ranks)
+                          for i, d in enumerate(("fwd", "bwd"))}
+        for k, mode in ((1, "baseline"), (2, "optimized"), (3, "exact"))}
+    # (m3) holds the card against the CPU, as gate (w) does: its launches
+    # are a gate's, not the path's
+    stats["m3"]["k1_launches_card"] = [sum(r[4]["k1_launches"][i]
+                                           for r in ranks) for i in (0, 1)]
+    stats["reference"] = {"step": ref, "control": ctrl, "exact": exact}
+    wall["phase"] = time.perf_counter() - t_phase
+    stats["wall_s"] = wall
+    stats["predicted_wall_s"] = MESH_PREDICTED_S
+    return failures, stats
+
+
+
 def _kernel_entry(name, source, replaces, launches, rows, headline,
                   smi, **extra):
     head = next((r for r in rows if r["shape"] == headline), None)
@@ -3335,9 +3714,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,train,dp,mamba,entry,archs,"
-                            "hybrid",
+                            "hybrid,mesh",
                     help="comma list of: kernels, serve, train, dp, mamba, "
-                         "entry, archs, hybrid")
+                         "entry, archs, hybrid, mesh")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3575,6 +3954,18 @@ def main() -> int:
                f"{t['max_memory_allocated'] / 2**30:.2f} GiB")
         report("hybrid stats: " + json.dumps(hstats))
         wall["hybrid"] = time.perf_counter() - t0
+    # 11. mesh
+    xstats = {}
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        f, xstats = phase_mesh(torch, report, workroot)
+        failures += f
+        report(f"mesh ({smi}): wall {xstats['wall_s']['phase']:.1f} s "
+               f"(predicted {MESH_PREDICTED_S:.0f} s; references "
+               f"{xstats['wall_s']['references']:.1f} s, ranks "
+               f"{xstats['wall_s']['ranks']:.1f} s)")
+        report("mesh stats: " + json.dumps(xstats, default=str))
+        wall["mesh"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))
 
     if failures:
@@ -3594,9 +3985,12 @@ def main() -> int:
     tw = astats.get("whisper", {}).get("train", {}).get("launches", {})
     tv = astats.get("internvl2", {}).get("train", {}).get("launches", {})
     tj = hstats.get("train", {}).get("launches", {})
+    xm = xstats.get("launches", {})
     tl = {k: sum(d.get(k, 0) for d in (tr, ts, td, te, to, tg, tq, tw, tv,
-                                       tj))
+                                       tj, *xm.values()))
           for k in ("k1_fwd", "k1_bwd", "k2")}
+    mesh_k1 = {k1: {f"mesh_{p}": v.get(k1, 0) for p, v in xm.items()}
+               for k1 in ("k1_fwd", "k1_bwd")}
     serve_k1 = stats.get("k1_launches", 0)
     arch_k1 = {"archs_serve_gemma3": astats.get("serve_gemma3", {}).get(
                    "k1_launches", 0),
@@ -3631,7 +4025,8 @@ def main() -> int:
                           "train_spill": ts.get("k1_fwd", 0),
                           "train_dp": td.get("k1_fwd", 0),
                           "entry_cli": te.get("k1_fwd", 0),
-                          "entry_cli_offload": to.get("k1_fwd", 0)}),
+                          "entry_cli_offload": to.get("k1_fwd", 0),
+                          **mesh_k1["k1_fwd"]}),
         _kernel_entry("K1 flash_attention_bwd",
                       "src/repro_torch/csrc/flash_attention_bwd.cu",
                       "src/repro/models/attention.py:105",
@@ -3646,7 +4041,8 @@ def main() -> int:
                           "archs_train_deepseek": tq.get("k1_bwd", 0),
                           "archs_train_whisper": tw.get("k1_bwd", 0),
                           "archs_train_internvl2": tv.get("k1_bwd", 0),
-                          "hybrid_train_jamba": tj.get("k1_bwd", 0)}),
+                          "hybrid_train_jamba": tj.get("k1_bwd", 0),
+                          **mesh_k1["k1_bwd"]}),
         _kernel_entry("K2 fused_adam", "src/repro_torch/csrc/fused_adam.cu",
                       "src/repro/kernels/fused_adam.py:27",
                       tl["k2"], arows, K2_HEADLINE, smi,

@@ -24,33 +24,92 @@ receive and return the same tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch import resolve_device, tree
+from repro_torch.launch import shardings as sh
 from repro_torch.models import blocks as blk
+from repro_torch.models import moe_ep
 from repro_torch.models.common import (embed_init, init_rms_scale, rms_norm,
                                        sinusoidal_pos_emb)
 
 AUX_COEF = 0.01  # router load-balance coefficient
+
+# The activations' layout of the pure-FSDP step, set by the launcher: a
+# spec whose first entry names the axes the batch is split over. The
+# port's activations are always this rank's batch rows, so the spec
+# records the layout and :func:`sharded` holds each sharded step to it;
+# the reference pins it on the layer carry and drops a spec it cannot
+# apply, where the port raises.
+_ACT_SPEC: Optional[Any] = None
+
+
+def set_activation_spec(spec) -> None:
+    """Record the batch axes of the pure-FSDP layout (``None`` clears):
+    ``spec`` is a ``shardings.P`` (or a tuple) that splits dim 0 and no
+    other dimension."""
+    global _ACT_SPEC
+    if spec is not None and any(e is not None for e in tuple(spec)[1:]):
+        raise ValueError(f"the port's activations split the batch only; "
+                         f"{tuple(spec)} splits another dimension")
+    _ACT_SPEC = spec
+
+
+@contextlib.contextmanager
+def sharded(layout):
+    """The context a sharded step's forward AND backward run in (the
+    backward recomputes checkpointed layers, which gather again and route
+    their MoE as the forward did): the MoE's view of the split batch, and
+    checkpoints that recompute their whole layer, so the recompute runs
+    the forward's collectives. ``layout`` ``None`` is the unsharded
+    model, which an activation spec does not fit."""
+    if layout is None:
+        if _ACT_SPEC is not None:
+            raise ValueError(f"an activation spec {tuple(_ACT_SPEC)} is set "
+                             "and the step is not sharded")
+        yield
+        return
+    if _ACT_SPEC is not None:
+        axes = layout.mesh.axes(tuple(_ACT_SPEC)[0])
+        if axes != tuple(layout.batch_axes):
+            raise ValueError(f"the activation spec splits the batch over "
+                             f"{axes}, the step's batch over "
+                             f"{tuple(layout.batch_axes)}")
+    with moe_ep.sharded_batch(layout.mesh, layout.batch_axes), \
+            set_checkpoint_early_stop(False):
+        yield
+
+
+def _use(layout, specs, local):
+    """``local`` (a subtree of this rank's shards) gathered at use, the
+    expert weights of an expert-parallel MoE left on their shard; the
+    tree itself without a layout."""
+    if layout is None:
+        return local
+    return sh.gather_tree(local, specs, layout.mesh,
+                          keep=moe_ep.stationary_dims)
 
 
 def init_params(cfg, seed: int = 0, dtype=torch.bfloat16,
                 device=None) -> Dict[str, Any]:
     """Random params drawn from one explicit ``torch.Generator`` seeded
     with ``seed`` on ``device`` (``cuda`` unless the caller names
-    another, see :func:`repro_torch.resolve_device`), in the reference's
-    tree layout and ``(in, out)`` weights. Torch draws other numbers than
-    ``jax.random``: tests that compare the two convert JAX params with
-    ``weights.params_from_jax``."""
+    another, see :func:`repro_torch.resolve_device`; ``"meta"`` gives
+    the shapes only), in the reference's tree layout and ``(in, out)``
+    weights. Torch draws other numbers than ``jax.random``: tests that
+    compare the two convert JAX params with ``weights.params_from_jax``."""
     device = resolve_device(device)
     if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.family!r} is no family of the reference's models")
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
+    g = None
+    if device.type != "meta":
+        g = torch.Generator(device=device)
+        g.manual_seed(int(seed))
     params: Dict[str, Any] = {}
     params["embed"] = embed_init(g, cfg.padded_vocab, cfg.d_model, dtype,
                                  device=device)
@@ -110,27 +169,37 @@ def _period_slice(stacked, i: int):
 
 
 def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
-               enc_out=None, remat=False):
+               enc_out=None, remat=False, layout=None, specs=None):
     """Run prefix + periods + suffix. ``caches`` (prefill/decode) are
     updated in place; ``enc_out`` is the encoder's output a decoder's
     cross-attention reads (train, prefill); ``remat`` (train) checkpoints
-    each block / period body. Returns (x, caches, aux)."""
+    each block / period body. With a ``layout`` the params are this
+    rank's shards (``specs`` the stack's spec subtree): each block and
+    each period's slice is gathered
+    when it is used, inside its checkpoint, so the recompute gathers
+    again. Returns (x, caches, aux)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"_run_stack mode {mode!r} is not train, prefill "
                          "or decode")
     ckpt = mode == "train" and remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def one(bp, x, kind, cache):
+    def one(bp, x, kind, cache, bspecs):
         if ckpt:
             return checkpoint(
-                lambda p_, x_, e_: blk.block_apply(p_, x_, cfg, kind,
-                                                   mode="train", enc_out=e_),
+                lambda p_, x_, e_: blk.block_apply(
+                    _use(layout, bspecs, p_), x_, cfg, kind,
+                    mode="train", enc_out=e_),
                 bp, x, enc_out, use_reentrant=False)
-        return blk.block_apply(bp, x, cfg, kind, mode=mode, cache=cache,
-                               pos=pos, enc_out=enc_out)
+        return blk.block_apply(_use(layout, bspecs, bp), x, cfg, kind,
+                               mode=mode, cache=cache, pos=pos,
+                               enc_out=enc_out)
+
+    pspecs = (sh.slice_specs(specs["periods"])
+              if layout is not None and plan.n_periods else None)
 
     def period(pparams, x, pcache, enc_out):
+        pparams = _use(layout, pspecs, pparams)
         a = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(plan.period):
             x, _, aj = blk.block_apply(
@@ -140,9 +209,13 @@ def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
             a = a + aj
         return x, a
 
+    def bspec(part, j):
+        return specs[part][j] if layout is not None else None
+
     for j, kind in enumerate(plan.prefix):
         x, _, a = one(params["prefix"][j], x, kind,
-                      caches["prefix"][j] if caches else None)
+                      caches["prefix"][j] if caches else None,
+                      bspec("prefix", j))
         aux = aux + a
     for i in range(plan.n_periods):
         pparams = _period_slice(params["periods"], i)
@@ -155,9 +228,18 @@ def _run_stack(params, x, cfg, plan, *, mode, caches=None, pos=None,
         aux = aux + a
     for j, kind in enumerate(plan.suffix):
         x, _, a = one(params["suffix"][j], x, kind,
-                      caches["suffix"][j] if caches else None)
+                      caches["suffix"][j] if caches else None,
+                      bspec("suffix", j))
         aux = aux + a
     return x, caches, aux
+
+
+def _top(params, specs, key: str, layout):
+    """A leaf outside the stacks (embedding, head, final norm), gathered
+    at use under a layout."""
+    if layout is None:
+        return params[key]
+    return sh.gather(params[key], specs[key], layout.mesh)
 
 
 def _embed_inputs(params, cfg, batch, *, decode: bool = False):
@@ -172,7 +254,7 @@ def _embed_inputs(params, cfg, batch, *, decode: bool = False):
     return x
 
 
-def _encode(params, cfg, enc_embeds, *, remat: bool = True):
+def _encode(params, cfg, enc_embeds, *, remat: bool = True, layout=None):
     """Whisper-style encoder over stubbed frame embeddings (B,F,d):
     sinusoidal positions, the non-causal encoder stack, its final norm.
     The activations keep ``enc_embeds``' dtype (f32 frames against bf16
@@ -180,21 +262,32 @@ def _encode(params, cfg, enc_embeds, *, remat: bool = True):
     _, F, d = enc_embeds.shape
     x = enc_embeds + sinusoidal_pos_emb(F, d, enc_embeds.dtype,
                                         enc_embeds.device)[None]
+    specs = layout.params["encoder"] if layout is not None else None
     x, _, _ = _run_stack(params["encoder"], x, cfg, _encoder_plan(cfg),
-                         mode="train", remat=remat)
-    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+                         mode="train", remat=remat, layout=layout,
+                         specs=specs)
+    return rms_norm(x, _top(params["encoder"], specs, "final_norm", layout),
+                    cfg.norm_eps)
 
 
-def forward_hidden(params, cfg, batch, *, remat: bool = True):
-    """Full-batch forward to final hidden states. Returns (hidden, aux)."""
+def forward_hidden(params, cfg, batch, *, remat: bool = True, layout=None):
+    """Full-batch forward to final hidden states. Returns (hidden, aux).
+    With a ``layout`` (``launch.shardings.Layout``) ``params`` are this
+    rank's shards and ``batch`` its slice; run it inside
+    :func:`sharded`."""
     plan = blk.build_plan(cfg)
+    specs = layout.params if layout is not None else None
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = _encode(params, cfg, batch["enc_embeds"], remat=remat)
-    x = _embed_inputs(params, cfg, batch)
+        enc_out = _encode(params, cfg, batch["enc_embeds"], remat=remat,
+                          layout=layout)
+    x = _embed_inputs({"embed": _top(params, specs, "embed", layout)}, cfg,
+                      batch)
     x, _, aux = _run_stack(params, x, cfg, plan, mode="train",
-                           enc_out=enc_out, remat=remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+                           enc_out=enc_out, remat=remat, layout=layout,
+                           specs=specs)
+    return (rms_norm(x, _top(params, specs, "final_norm", layout),
+                     cfg.norm_eps), aux)
 
 
 # ---------------------------------------------------------------------------
@@ -256,14 +349,22 @@ def labels_and_weights(cfg, batch):
     return labels, weights
 
 
-def loss_fn(params, cfg, batch, *, remat: bool = True):
+def loss_fn(params, cfg, batch, *, remat: bool = True, layout=None):
     """Mean next-token cross-entropy (+ the router aux loss) of ``batch``
     (``{"tokens": (B, S) int}``, plus ``"enc_embeds"`` (B,F,d) for an
     encoder-decoder or ``"image_embeds"`` (B,P,d) for a VLM) under
-    ``params``; differentiable."""
-    hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
-    labels, weights = labels_and_weights(cfg, batch)
-    loss = chunked_xent(hidden, unembed_matrix(params, cfg), labels, weights)
+    ``params``; differentiable. With a ``layout``: this rank's loss over
+    its batch slice, from its parameter shards (see
+    ``core.schedules`` for the global mean and gradients)."""
+    with sharded(layout):
+        hidden, aux = forward_hidden(params, cfg, batch, remat=remat,
+                                     layout=layout)
+        labels, weights = labels_and_weights(cfg, batch)
+        specs = layout.params if layout is not None else None
+        head = "embed" if cfg.tie_embeddings else "unembed"
+        unembed = unembed_matrix({head: _top(params, specs, head, layout)},
+                                 cfg)
+        loss = chunked_xent(hidden, unembed, labels, weights)
     return loss + AUX_COEF * aux
 
 

@@ -103,13 +103,28 @@ def apply_update(state: AdamState, grads, cfg: AdamConfig,
             state._replace(step=step))
 
 
-def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g.float() ** 2)
-                          for g in tree.leaves(grads)))
+def global_norm(grads, *, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every element of ``grads``. Sharded (``mesh`` and
+    the leaves' ``specs``): each leaf is this rank's shard, replicated
+    over the axes its spec does not name, so the squares are summed over
+    the axes each leaf is split over, and every element counts once."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2)
+                              for g in tree.leaves(grads)))
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.shardings import split_axes
+    by_axes: dict = {}
+    for g, s in zip(tree.leaves(grads), tree.leaves(specs)):
+        axes = split_axes(s, mesh)
+        sq = torch.sum(g.float() ** 2)
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    return torch.sqrt(sum(coll.all_reduce(v, mesh, axes) if axes else v
+                          for axes, v in by_axes.items()))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Returns (clipped grads, clip_coef<=1, raw norm)."""
-    n = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None):
+    """Returns (clipped grads, clip_coef<=1, raw norm); sharded as
+    :func:`global_norm`."""
+    n = global_norm(grads, mesh=mesh, specs=specs)
     coef = torch.clamp(max_norm / torch.clamp_min(n, 1e-12), max=1.0)
     return tree.tree_map(lambda g: g.float() * coef, grads), coef, n

@@ -40,6 +40,21 @@ def params_from_jax(params_np, device=None):
     return tree.tree_map(lambda a: tensor_from_numpy(a, device), params_np)
 
 
+def shard_params_from_jax(params_np, mesh, *, expert_parallel: bool = False,
+                          fully_shard: bool = False, device=None):
+    """This rank's shards of the reference's parameters on the bound
+    ``mesh`` (``launch.shardings``' rules), on ``device``: each leaf is
+    cut on the host before it moves, so a rank never holds the whole
+    tree on the card."""
+    from repro_torch.launch import shardings as sh
+    full = params_from_jax(params_np)
+    specs = sh.param_specs(full, mesh, expert_parallel=expert_parallel,
+                           fully_shard=fully_shard)
+    return tree.tree_map(
+        lambda x, s: sh.local_shard(x, s, mesh).to(device)
+        if device is not None else sh.local_shard(x, s, mesh), full, specs)
+
+
 _STATES = {"KVCache": attention.KVCache, "MLACache": attention.MLACache,
            "MambaState": mamba.MambaState}
 

@@ -668,3 +668,69 @@ def test_trainer_checkpoint_resume_is_bitwise_on_the_card():
     for x, y in zip(tree.leaves((b.params, b.state)),
                     tree.leaves((whole.params, whole.state))):
         assert torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+
+
+# ---------------------------------------------------------------------------
+# The mesh: ranks that share the card over gloo (chip_smoke.py's mesh phase
+# at SMOKE width)
+# ---------------------------------------------------------------------------
+
+def _mesh_smoke_jobs():
+    """qwen3-moe-235b-a22b's SMOKE config (4 experts, top-2) on a 2 x 2
+    mesh: EP at capacity 8 and 0.5 from seeded params and tokens, and the
+    optimized step in f32 on the card and on the CPU from the same
+    params."""
+    from repro_torch.launch import sharded
+    cfg = get_smoke("qwen3-moe-235b-a22b")
+    params = tree.tree_map(lambda a: a.numpy(), mdl.init_params(
+        cfg, 3, dtype=torch.float32, device="cpu"))
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int64)
+    step = {"cfg": cfg, "mesh": (2, 2), "mode": "optimized",
+            "params": params, "tokens": tokens, "dtype": torch.float32,
+            "steps": 1, "grads": True}
+    return cfg, sharded, [
+        ("ep", {"cfg": cfg, "mesh": (2, 2), "seed": 11, "x_seed": 12,
+                "x_shape": (4, 64, cfg.d_model), "dtype": torch.float32,
+                "capacities": [8.0, 0.5]}),
+        ("step", {**step, "device": "cuda"}),
+        ("step", {**step, "device": "cpu"})]
+
+
+@pytest.mark.gpu
+def test_mesh_ep_and_sharded_step_card_vs_cpu():
+    """(m1) and (m3) at SMOKE width on 4 gloo ranks sharing the card: EP
+    at capacity 8 equals ``moe_apply`` in one process within 1e-5 (f32)
+    and drops nothing; at 0.5 each rank's 64 x 2 assignments meet 2 x 32
+    owner slots, so at least 4 x 64 drop; one dispatch a rank a capacity;
+    the
+    optimized sharded step's loss and gradients on the card's ranks within
+    1e-5 of the CPU's (each leaf's largest element), collective counts
+    equal on both and to their closed form."""
+    _need_card()
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import moe as moe_lib
+    cfg, sharded, jobs = _mesh_smoke_jobs()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    mp = moe_lib.moe_init(g, cfg, torch.float32, device="cuda")
+    g.manual_seed(12)
+    x = torch.randn((4, 64, cfg.d_model), generator=g, device="cuda") * 0.3
+    y_ref, aux_ref = moe_lib.moe_apply(mp, x, cfg, capacity_factor=8.0)
+    ranks = run_ranks(sharded.run_jobs, 4, backend="gloo", device="cuda:0",
+                      timeout=120, args=(jobs,))
+    ep = ranks[0][0]
+    assert float((ep[8.0]["y"] - y_ref.cpu()).abs().max()) <= 1e-5
+    assert abs(ep[8.0]["aux"] - float(aux_ref)) <= 1e-5
+    assert ep["dropped"][8.0] == 0 and ep["dropped"][0.5] >= 4 * 64
+    assert all(r[0]["dispatches"] == {8.0: 1, 0.5: 1} for r in ranks)
+    card, host = ranks[0][1], ranks[0][2]
+    assert card["use_ep"] and abs(card["losses"][0]
+                                  - host["losses"][0]) <= 1e-5
+    for a, b in zip(tree.leaves(card["grads"]), tree.leaves(host["grads"])):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+    for r in ranks:
+        for job in (1, 2):
+            assert sharded.counts_equal(r[job]["counts"][0],
+                                        r[job]["expected_counts"][0])

@@ -33,8 +33,9 @@ print(",".join(names), bad)
 #: in-memory Trainer and its checkpoints, the training CLI, the kernel
 #: benchmark and the six examples), whose scripts parse their arguments
 #: only inside ``main``, and the attention architectures (MoE, its
-#: expert-parallel seam and the five configs), and the hybrid family's
-#: config
+#: expert-parallel seam and the five configs), the hybrid family's
+#: config, and the launch layer (the mesh, the spec rules, the
+#: collectives and the sharded jobs)
 REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.obs.registry", "repro_torch.offload.autotune",
             "repro_torch.offload.dp", "repro_torch.offload.engine",
@@ -56,7 +57,9 @@ REQUIRED = {"repro_torch.core.lp_search", "repro_torch.obs.reconcile",
             "repro_torch.configs.gemma3_1b",
             "repro_torch.configs.deepseek_v2_lite_16b",
             "repro_torch.configs.qwen3_moe_235b_a22b",
-            "repro_torch.configs.jamba_v01_52b"}
+            "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+            "repro_torch.launch.collectives", "repro_torch.launch.sharded"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
