@@ -646,11 +646,49 @@ M2_EXACT_CF, M2_EXACT_S = 8.0, 256
 # one thread), a step's loss and gradients within 1e-5 (gradients of each
 # leaf's largest element)
 M3_ARCH, M3_B, M3_S, M3_TOL = "qwen3-moe-235b-a22b", 8, 32, 1e-5
+# (m4) sharded serving (the reference's lower_prefill / lower_decode
+# layout: parameters over "model" gathered at use, the batch over "data",
+# caches by cache_pspec): deepseek-v2-lite-16b at (m2)'s width, depth and
+# seed, bf16, a prefill of M4_B x M4_S tokens and M4_GEN decode steps of
+# fixed tokens into caches of M4_S + M4_GEN slots (the MLA latent and rope
+# keys split over "model"), against the unsharded prefill / decode_step on
+# the card from the same weights and tokens: every call's logits within
+# SERVE_REL_TOL by relative norm (bf16: the ranks' products run over half
+# the rows, so cuBLAS may round otherwise). The MoE runs at capacity
+# factor E / K (C = T, nothing drops on either side): at 1.25 a decode
+# step's T = 4 tokens fit one slot an expert, and which assignment drops
+# follows bf16 ties. Each rank's K1 launches == layers x 1 prefill (decode
+# is the absorbed MLA, no K1); every rank's collective counts == their
+# closed form (sharded.serve_collectives) in every call.
+M4_B, M4_S, M4_GEN = 4, 512, 4
+SERVE_REL_TOL = 1e-2
+# (m5) qwen3-4b at full width, depth 36 -> M5_LAYERS, bf16, K/V split over
+# "model" (K1 at hd 128, G = 4), as (m4)
+M5_LAYERS, M5_SEED = 2, 5
+# (m6) SMOKE configs in f32: the card's ranks against the same ranks on
+# the CPU, every call's logits within M6_TOL of the CPU's largest (1e-4
+# for the Mamba families, gate (w)'s card-vs-CPU limit); a prefill of
+# M6_B x M6_S (gemma3's ring of 16 slots written at the clamped start)
+# and M6_GEN decode steps. Each Mamba decode step starts from the CPU
+# ranks' conv tails (sharded.decode_job's "conv_from"): a tail is bf16
+# and can round the other way on the card, which alone moves the logits
+# by up to 1.7e-4 of their largest (measured on the CPU, one ulp).
+M6_ARCHS = ("falcon-mamba-7b", "jamba-v0.1-52b", "gemma3-1b", "whisper-base")
+M6_B, M6_S, M6_GEN, M6_CACHE = 4, 25, 4, 32
+M6_TOL = {"ssm": 1e-4, "hybrid": 1e-4}
+M6_TOL_DEFAULT = 1e-5
+# (d) the dry-run (launch/dryrun.py) in a spawned child, as rank 0 of a
+# fake world: (m2)'s configuration at 2 x 2 in both lowerings, whose
+# collective counts must equal what (m2)'s rank 0 counted; and
+# deepseek-v2-lite-16b train_4k at 16 x 16, printed
+D_FULL = ("deepseek-v2-lite-16b", "train_4k")
 # the phase's predicted wall time: three unsharded references ~25 s, two
 # updates to disk ~10 s, 4 ranks up ~10 s, (m2) one step a run: ~30 s
 # baseline, ~20 s optimized, ~20 s the exact run (gloo moves ~5 GB a
-# rank a step), (m1) + (m3) ~10 s
-MESH_PREDICTED_S = 125.0
+# rank a step), (m1) + (m3) ~10 s; (m4) ~15 s (every call gathers the
+# 3.3 GB of params through gloo: ~1.7 GB a rank a call), (m5) ~8 s, (m6)
+# ~5 s, their references ~5 s; (d) overlaps the rest in its own process
+MESH_PREDICTED_S = 160.0
 
 
 def nvidia_smi_line() -> str:
@@ -3452,6 +3490,219 @@ def _m2_reference(torch, cfg, tokens, capacity_factor, *, path=None,
     return out, update
 
 
+def _serve_job(torch, cfg, seed, capacity_factor):
+    """(m4) / (m5)'s rank job: ``init_params`` from ``seed`` in bf16 on
+    the card, M4_B x M4_S prompt tokens and M4_GEN decode tokens drawn
+    from the seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 100)
+    return {"cfg": cfg, "mesh": MESH_SHAPE, "seed": seed,
+            "dtype": torch.bfloat16, "capacity": capacity_factor,
+            "batch": {"tokens": rng.integers(
+                0, cfg.vocab_size, (M4_B, M4_S)).astype(np.int64)},
+            "decode_tokens": rng.integers(
+                0, cfg.vocab_size, (M4_GEN, M4_B, 1)).astype(np.int64),
+            "cache_len": M4_S + M4_GEN}
+
+
+def _serve_reference(torch, job):
+    """The unsharded prefill + decode steps of a serve job on the card:
+    every call's logits (host) and seconds. Frees the card."""
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.launch import sharded
+    from repro_torch.models import model as mdl
+    cfg = job["cfg"]
+    params = mdl.init_params(cfg, job["seed"], dtype=job["dtype"],
+                             device="cuda")
+    caches = mdl.init_caches(cfg, M4_B, job["cache_len"], dtype=job["dtype"],
+                             device="cuda")
+    out = {"logits": [], "seconds": [],
+           "params": sum(t.numel() for t in tree.leaves(params))}
+    pos = M4_S
+    with sharded.capacity(job["capacity"]):
+        for tok in [None] + list(job["decode_tokens"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tok is None:
+                lg, caches = mdl.prefill(params, cfg, {
+                    "tokens": torch.from_numpy(
+                        job["batch"]["tokens"]).cuda()}, caches)
+            else:
+                lg, caches = mdl.decode_step(params, cfg, torch.from_numpy(
+                    tok).cuda(), pos, caches)
+                pos += 1
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["logits"].append(lg.cpu())
+    del params, caches, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_gates(ranks, k, key, job, ref, report):
+    """(m4) / (m5): the ranks' logits (every row) against the unsharded
+    run's, each call by relative norm; K1 launches; collective counts."""
+    from repro_torch.launch import sharded
+    cfg = job["cfg"]
+    rs = [r[k] for r in ranks]
+    a = rs[0]
+    rel = [float((g.float() - w.float()).norm() / w.float().norm())
+           for g, w in zip(a["logits_full"], ref["logits"], strict=True)]
+    counts_ok = all(sharded.counts_equal(c, e) for r in rs
+                    for c, e in zip(r["counts"], r["expected_counts"],
+                                    strict=True))
+    n_attn = sum(1 for i in range(cfg.num_layers) if cfg.is_attn_layer(i))
+    k1 = [r["k1_launches"] for r in rs]
+    ok = (max(rel) <= SERVE_REL_TOL and counts_ok
+          and k1 == [n_attn] * len(rs) and len(rel) == 1 + M4_GEN)
+    gb = [{kind: round(v["result_bytes"] / 1e9, 4)
+           for kind, v in c.items() if v["count"]} for c in a["counts"][:2]]
+    st = {"model": cfg.name, "layers": cfg.num_layers,
+          "params": ref["params"], "logits_rel_by_call": rel,
+          "counts_equal_closed_form": counts_ok, "k1_launches_by_rank": k1,
+          "seconds_by_rank": [r["seconds"] for r in rs],
+          "unsharded_seconds": ref["seconds"],
+          "max_memory_allocated_by_rank": [r["max_memory_allocated"]
+                                           for r in rs],
+          "collectives_prefill_rank0": a["counts"][0],
+          "collectives_decode_rank0": a["counts"][1],
+          "capacity_factor": job["capacity"],
+          "job_seconds": max(r["job_seconds"] for r in rs)}
+    report(f"({key}) sharded serving {cfg.name} at full width, "
+           f"{cfg.num_layers} layers ({ref['params'] / 1e9:.3f} B params), "
+           f"bf16, {M4_B} x {M4_S} prompt + {M4_GEN} decode steps, batch "
+           f"over {a['batch_axes']}, caches split over model: logits rel "
+           f"by call {[f'{x:.2e}' for x in rel]} (tol {SERVE_REL_TOL}); "
+           f"collectives == closed form {counts_ok}; K1 by rank {k1} "
+           f"(closed form {n_attn}); s by call (rank 0) "
+           f"{[round(t, 3) for t in a['seconds']]} vs unsharded "
+           f"{[round(t, 3) for t in ref['seconds']]}; rank 0 result GB "
+           f"prefill / decode {gb} -> {'OK' if ok else 'FAIL'}")
+    return ([] if ok else [f"({key}) sharded serving: " + json.dumps(
+        {x: y for x, y in st.items() if not x.startswith("collectives")})]
+    ), st
+
+
+def _m6_job(torch, cfg):
+    """(m6)'s job on both devices: the port's f32 params from seed 7 as
+    numpy, prompts, decode tokens and whisper's frames from the seed."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.models import model as mdl
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (M6_B, M6_S))
+             .astype(np.int64)}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (M6_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {"cfg": cfg, "mesh": MESH_SHAPE, "dtype": torch.float32,
+            "params": tree.tree_map(lambda a: a.numpy(), mdl.init_params(
+                cfg, 7, dtype=torch.float32, device="cpu")),
+            "batch": batch, "cache_len": M6_CACHE,
+            "decode_tokens": rng.integers(0, cfg.vocab_size,
+                                          (M6_GEN, M6_B, 1)).astype(np.int64)}
+
+
+def _m6_gates(ranks, at, report):
+    """(m6): the card's ranks against the CPU's, every call's logits
+    (every row) within M6_TOL of the CPU's largest; every rank's counts
+    equal on both devices and to their closed form."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import sharded
+    failures, stats = [], {}
+    for arch, i in at.items():
+        host, card = ranks[0][i], ranks[0][i + 1]
+        tol = M6_TOL.get(get_smoke(arch).family, M6_TOL_DEFAULT)
+        gaps = [float((c - h).abs().max()) / max(1.0, float(h.abs().max()))
+                for c, h in zip(card["logits_full"], host["logits_full"],
+                                strict=True)]
+        counts_ok = all(
+            sharded.counts_equal(c, e) and sharded.counts_equal(c, hc)
+            for r in ranks
+            for c, e, hc in zip(r[i + 1]["counts"],
+                                r[i + 1]["expected_counts"],
+                                r[i]["counts"], strict=True))
+        ok = max(gaps) <= tol and counts_ok
+        stats[arch] = {"logits_gap_by_call": gaps, "tol": tol,
+                       "counts_equal": counts_ok,
+                       "k1_launches_card_by_rank": [r[i + 1]["k1_launches"]
+                                                    for r in ranks],
+                       "k3_launches_card_by_rank": [r[i + 1]["k3_launches"]
+                                                    for r in ranks]}
+        report(f"(m6) {arch} SMOKE f32 sharded prefill + {M6_GEN} decode "
+               f"steps: card ranks vs CPU ranks logits gap by call "
+               f"{[f'{g:.2e}' for g in gaps]} (of the CPU's max; tol {tol})"
+               f", collectives equal {counts_ok}, K1 / K3 by card rank "
+               f"{stats[arch]['k1_launches_card_by_rank']} / "
+               f"{stats[arch]['k3_launches_card_by_rank']} -> "
+               f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(m6) {arch}: {stats[arch]}")
+    return failures, stats
+
+
+def _dryrun_start(cfg, B, S):
+    """(d): start the dry-run's child (a process of its own: it joins a
+    fake process group) while the phase's references and ranks run:
+    (m2)'s configuration ``cfg`` over B x S tokens at 2 x 2 in both
+    lowerings, then D_FULL at 16 x 16. Returns (executor, futures, start
+    time)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    shape = InputShape("m2", S, B, "train")
+    ex = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    futs = {"m2": ex.submit(dryrun.trace_records,
+                            [(cfg, shape, {"fsdp_batch": False}),
+                             (cfg, shape, {"fsdp_batch": True})], "2x2"),
+            "full": ex.submit(dryrun.trace_records,
+                              [(get_config(D_FULL[0]),
+                                INPUT_SHAPES[D_FULL[1]], {})], "16x16")}
+    return ex, futs, time.perf_counter()
+
+
+def _dryrun_gates(started, ranks, report):
+    """(d): the dry-run's (m2) records' collective counts against (m2)'s
+    rank 0 in both lowerings; peaks beside (m2)'s measured memory; the
+    full-size record printed."""
+    from repro_torch.launch import sharded
+    ex, futs, t0 = started
+    try:
+        m2 = futs["m2"].result(timeout=300)
+        full = futs["full"].result(timeout=300)
+    finally:
+        for p in list(getattr(ex, "_processes", {}).values()):
+            if p.is_alive() and not all(f.done() for f in futs.values()):
+                p.kill()
+        ex.shutdown(wait=True, cancel_futures=True)
+    wait_s = time.perf_counter() - t0
+    failures, stats = [], {"records_m2": m2, "record_full": full[0],
+                           "child_wall_s": wait_s}
+    for rec, k, mode in ((m2[0], 1, "baseline"), (m2[1], 2, "optimized")):
+        step = ranks[0][k]
+        same = (sharded.counts_equal(rec["collectives"], step["counts"][0])
+                and rec["collectives"]["collective-permute"]["count"] == 0)
+        report(f"(d) dry-run of (m2) {mode} at 2 x 2 (rank 0 of a fake "
+               f"world of 4, meta tensors): collectives == (m2) rank 0's "
+               f"{same}; flops/rank {rec['flops_per_device']:.4e}; "
+               f"peak_estimate {rec['memory']['peak_estimate_bytes'] / 2**30:.2f}"
+               f" GiB beside (m2)'s measured max_memory_allocated "
+               f"{step['max_memory_allocated'] / 2**30:.2f} GiB; trace "
+               f"{rec['trace_s']} s -> {'OK' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"(d) {mode}: {rec['collectives']} vs "
+                            f"{step['counts'][0]}")
+    report(f"(d) full size: {json.dumps(full[0])}")
+    return failures, stats
+
+
 def phase_mesh(torch, report, workroot):
     """The launch layer on MESH_RANKS ranks that share the card (gloo):
     (m1) expert-parallel MoE at deepseek-v2-lite-16b's full width against
@@ -3463,7 +3714,14 @@ def phase_mesh(torch, report, workroot):
     batch (losses, grad norms, every f32 master), each rank's collective
     bytes by kind equal to their closed form from the spec tree; (m3)
     qwen3-moe's SMOKE config, optimized, f32: the card's ranks against the
-    same ranks on the CPU within 1e-5. The unsharded references run first
+    same ranks on the CPU within 1e-5; (m4), (m5) sharded prefill and
+    decode (the serve layout: caches split over "model") of
+    deepseek-v2-lite-16b at (m2)'s size and qwen3-4b at full width, 2
+    layers, against the unsharded runs on the card; (m6) the SMOKE
+    configs of falcon-mamba, Jamba, gemma3 (ring) and whisper served,
+    card ranks vs CPU ranks; (d) the dry-run of (m2)'s configuration in a
+    child process (rank 0 of a fake world, meta tensors), its collective
+    counts against (m2)'s rank 0. The unsharded references run first
     in this process and free the card before the ranks start; the ranks
     only load the kernels this process built. Returns (failures, stats)."""
     import numpy as np
@@ -3480,6 +3738,9 @@ def phase_mesh(torch, report, workroot):
     torch.cuda.empty_cache()    # the ranks share the card with this process
     failures, stats, wall = [], {}, {}
     t_phase = time.perf_counter()
+    d_futures = _dryrun_start(dataclasses.replace(
+        get_config("deepseek-v2-lite-16b"), num_layers=M2_LAYERS), M2_B,
+        M2_S)
     report(f"mesh: {MESH_RANKS} ranks on a {MESH_SHAPE[0]} x "
            f"{MESH_SHAPE[1]} (data, model) mesh sharing the one card, "
            f"backend {MESH_BACKEND} (every collective on the card's "
@@ -3528,6 +3789,13 @@ def phase_mesh(torch, report, workroot):
            f"at its least leaf ({ctrl_min}; the limit {M2_UPDATE_RTOL}); "
            f"at capacity {M2_EXACT_CF} over {M2_B} x {M2_EXACT_S} tokens: "
            f"losses {exact['losses']}, dropped {exact['dropped']}")
+    # (m4), (m5): the unsharded prefill + decode steps on the card
+    m45 = {"m4": _serve_job(torch, cfg, 0,
+                            cfg.num_experts / cfg.moe_top_k),
+           "m5": _serve_job(torch, dataclasses.replace(
+               get_config("qwen3-4b"), num_layers=M5_LAYERS), M5_SEED,
+               None)}
+    serve_ref = {k: _serve_reference(torch, job) for k, job in m45.items()}
     # (m3) the same inputs for the card's and the CPU's ranks
     scfg = get_smoke(M3_ARCH)
     sp = tree.tree_map(lambda a: a.numpy(), mdl.init_params(
@@ -3552,7 +3820,16 @@ def phase_mesh(torch, report, workroot):
           for dev in ("cuda", "cpu")}
     jobs = [("ep", m1_job), ("step", m2["baseline"]),
             ("step", m2["optimized"]), ("step", m2["exact"]),
-            ("step", m3["cuda"]), ("step", m3["cpu"])]
+            ("step", m3["cuda"]), ("step", m3["cpu"]),
+            ("decode", m45["m4"]), ("decode", m45["m5"])]
+    m6_at = {}
+    for arch in M6_ARCHS:
+        host = _m6_job(torch, get_smoke(arch))
+        jobs.append(("decode", dict(host, device="cpu",
+                                    record_conv=True)))
+        jobs.append(("decode", dict(host, device="cuda",
+                                    conv_from=len(jobs) - 1)))
+        m6_at[arch] = len(jobs) - 2
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(sharded.run_jobs, MESH_RANKS,
@@ -3680,11 +3957,26 @@ def phase_mesh(torch, report, workroot):
     if not ok:
         failures.append(f"(m3) card vs CPU: {stats['m3']}")
 
+    # (m4), (m5)
+    for k, key in ((6, "m4"), (7, "m5")):
+        f, stats[key] = _serve_gates(ranks, k, key, m45[key],
+                                     serve_ref[key], report)
+        failures += f
+    # (m6)
+    f, stats["m6"] = _m6_gates(ranks, m6_at, report)
+    failures += f
+    # (d)
+    f, stats["d"] = _dryrun_gates(d_futures, ranks, report)
+    failures += f
+
     stats["launches"] = {
         f"train_{mode}": {f"k1_{d}": sum(r[k]["k1_launches"][i]
                                          for r in ranks)
                           for i, d in enumerate(("fwd", "bwd"))}
         for k, mode in ((1, "baseline"), (2, "optimized"), (3, "exact"))}
+    stats["launches"].update({
+        f"serve_{key}": {"k1_fwd": sum(r[k]["k1_launches"] for r in ranks)}
+        for k, key in ((6, "m4"), (7, "m5"))})
     # (m3) holds the card against the CPU, as gate (w) does: its launches
     # are a gate's, not the path's
     stats["m3"]["k1_launches_card"] = [sum(r[4]["k1_launches"][i]
@@ -3963,7 +4255,12 @@ def main() -> int:
         report(f"mesh ({smi}): wall {xstats['wall_s']['phase']:.1f} s "
                f"(predicted {MESH_PREDICTED_S:.0f} s; references "
                f"{xstats['wall_s']['references']:.1f} s, ranks "
-               f"{xstats['wall_s']['ranks']:.1f} s)")
+               f"{xstats['wall_s']['ranks']:.1f} s, the dry-run's child "
+               f"{xstats['d']['child_wall_s']:.1f} s from the phase's "
+               f"start); sharded serving s by call (rank 0): (m4) "
+               f"{[round(t, 3) for t in xstats['m4']['seconds_by_rank'][0]]}"
+               f", (m5) "
+               f"{[round(t, 3) for t in xstats['m5']['seconds_by_rank'][0]]}")
         report("mesh stats: " + json.dumps(xstats, default=str))
         wall["mesh"] = time.perf_counter() - t0
     report("phase wall seconds: " + json.dumps(wall))

@@ -11,6 +11,7 @@ copies of the reference's.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
 
@@ -36,6 +37,26 @@ _MODULES = {
 }
 
 
+ASSIGNED_ARCHS = [
+    "deepseek-v2-lite-16b",
+    "whisper-base",
+    "falcon-mamba-7b",
+    "phi3-medium-14b",
+    "qwen3-4b",
+    "qwen3-moe-235b-a22b",
+    "jamba-v0.1-52b",
+    "starcoder2-7b",
+    "gemma3-1b",
+    "internvl2-76b",
+]
+
+# archs eligible for the long_500k decode shape (sub-quadratic context):
+# SSM (O(1) state), hybrid (only 4/32 layers hold a full cache), and the
+# one dense arch with a native sliding-window pattern (gemma3: only ~4
+# global layers hold a full cache). Pure full-attention archs skip it.
+LONG_CONTEXT_ARCHS = ["falcon-mamba-7b", "jamba-v0.1-52b", "gemma3-1b"]
+
+
 def _entry(name: str):
     try:
         return _MODULES[name]
@@ -51,3 +72,17 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return importlib.import_module(_entry(name)[0]).SMOKE
+
+
+def list_archs() -> Dict[str, str]:
+    """Every architecture id -> the module that defines it."""
+    return {name: mod for name, (mod, _) in _MODULES.items()}
+
+
+def supports_shape(arch: str, shape: str) -> bool:
+    """Whether (arch, shape) is part of the dry-run matrix: every shape
+    but ``long_500k``, which only the long-context archs take."""
+    _entry(arch)
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True

@@ -29,6 +29,16 @@ rounded to bf16 (a relative change of at most 2^-8 per element of
 Training has no query offset: the backward raises for ``q0 != 0``.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` over the two.
+
+``meta`` tensors (the dry-run, ``launch/dryrun.py``) take a shape-only
+path in both entries: empty outputs of the kernel's shapes and dtypes,
+and the call's FLOPs reported to ``kernels._shape_only`` by a closed
+form of what the reference's ``jnp`` attention computes
+(``repro/models/attention.py`` ``_flash_fwd_impl`` and ``_flash_vjp_bwd``
+run every (q chunk, kv chunk) pair and mask it, skipping none), so that
+the port's cost analysis and the reference's ``hlo_cost`` count the same
+products. The card's kernels skip masked tiles: a causal call does about
+half this work there.
 """
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shape_only
 
 _NEG_INF = -1e30
 
@@ -204,15 +214,40 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1. CPU tensors -> :func:`flash_attention_plain`; CUDA tensors ->
     the Hopper kernel (f32 or bf16, head dims among :data:`PAIRS`,
-    contiguous) or an exception."""
+    contiguous) or an exception; ``meta`` tensors -> the shape-only path
+    (module docstring)."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _launch(q, k, v, causal=causal, window=window, q0=q0,
                        scale=sc)
+    if q.is_meta:
+        return _shape_only_fwd(q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"no flash-attention path for device {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q0=q0, scale=sc)
+
+
+def fwd_flops(q, k, v) -> float:
+    """The forward's products over every (query, key) pair: ``Q K^T`` at
+    hd and ``P V`` at hdv, masked pairs included."""
+    B, Hq, Sq, hd = q.shape
+    return 2.0 * B * Hq * Sq * k.shape[2] * (hd + v.shape[3])
+
+
+def bwd_flops(q, k, v) -> float:
+    """The backward's five products over every pair: S recomputed, dQ and
+    dK at hd; dV and dP at hdv."""
+    B, Hq, Sq, hd = q.shape
+    return 2.0 * B * Hq * Sq * k.shape[2] * (3 * hd + 2 * v.shape[3])
+
+
+def _shape_only_fwd(q, k, v):
+    B, Hq, Sq, _ = q.shape
+    out = q.new_empty((B, Hq, Sq, v.shape[3]))
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    _shape_only.record(fwd_flops(q, k, v), (q, k, v), (out, lse))
+    return out, lse
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +359,13 @@ def _launch_bwd(q, k, v, out, dout, lse, *, causal, window, scale):
     return dq, dk, dv
 
 
+def _shape_only_bwd(q, k, v, out, dout, lse):
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _shape_only.record(bwd_flops(q, k, v), (q, k, v, out, dout, lse),
+                       (dq, dk, dv))
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: Optional[int] = None, q0: int = 0,
                         scale: Optional[float] = None
@@ -332,7 +374,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     and ``lse``, and ``dout``. CPU tensors ->
     :func:`flash_attention_bwd_plain`; CUDA tensors -> the Hopper kernel
     (f32 or bf16, head dims among :data:`PAIRS`, contiguous) or an
-    exception."""
+    exception; ``meta`` tensors -> the shape-only path."""
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q0 != 0:
         raise ValueError(f"the flash-attention backward has no query "
@@ -341,6 +383,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if q.is_cuda:
         return _launch_bwd(q, k, v, out, dout, lse, causal=causal,
                            window=window, scale=sc)
+    if q.is_meta:
+        return _shape_only_bwd(q, k, v, out, dout, lse)
     if q.device.type != "cpu":
         raise ValueError(f"no flash-attention path for device {q.device}")
     return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,

@@ -19,6 +19,13 @@ path's types (``models/mamba.py``) — and any state size up to
 ``MAX_STATE``. It has no backward, like the TPU kernel: training runs
 the model's chunked scan (``models.mamba.selective_scan``), which
 builds on :func:`scan_steps` below.
+
+``meta`` tensors (the dry-run) take a shape-only path: empty ``y`` and
+``h`` and the call's FLOPs reported to ``kernels._shape_only`` by a
+closed form of what the reference's ``jnp`` scan computes and its cost
+analysis counts (``hlo_cost`` counts ``dot`` ops only): the per-step
+``einsum("bds,bs->bd", h, C)``, 2 B S di st. The recurrence's
+element-wise work is not counted, in either package.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shape_only
 
 #: kernel launches (incremented where the CUDA kernel is launched, and
 #: nowhere else)
@@ -136,13 +143,31 @@ def _launch(x, dt, A, Bc, Cc, D):
     return y, h
 
 
+def scan_flops(x, A) -> float:
+    """The reference scan's counted products: the per-step ``h . C``."""
+    B, S, di = x.shape
+    return 2.0 * B * S * di * A.shape[-1]
+
+
+def _shape_only_scan(x, dt, A, Bc, Cc, D):
+    B, S, di = x.shape
+    y = torch.empty_like(x)
+    h = torch.empty((B, di, A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    _shape_only.record(scan_flops(x, A), (x, dt, A, Bc, Cc, D), (y, h))
+    return y, h
+
+
 def selective_scan_fwd(x, dt, A, Bc, Cc, D
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3. CPU tensors -> :func:`selective_scan_plain`; CUDA tensors ->
     the Hopper kernel (x, Bc, Cc f32 or bf16; dt, A, D f32; st <=
-    ``MAX_STATE``) or an exception. Returns (y, h_S f32)."""
+    ``MAX_STATE``) or an exception; ``meta`` tensors -> the shape-only
+    path (module docstring). Returns (y, h_S f32)."""
     if x.is_cuda:
         return _launch(x, dt, A, Bc, Cc, D)
+    if x.is_meta:
+        return _shape_only_scan(x, dt, A, Bc, Cc, D)
     if x.device.type != "cpu":
         raise ValueError(f"no selective-scan path for device {x.device}")
     return selective_scan_plain(x, dt, A, Bc, Cc, D)

@@ -1,7 +1,8 @@
 """Jobs that run on every rank of a mesh (``launch.mesh.run_ranks``): the
-expert-parallel MoE and the sharded train step, from full-size inputs
-that every rank builds alike (the reference's numpy parameters, or the
-same seed), and the closed form of a step's collective traffic.
+expert-parallel MoE, the sharded train step and the sharded prefill and
+decode, from full-size inputs that every rank builds alike (the
+reference's numpy parameters, or the same seed), and the closed form of
+each step's collective traffic.
 
 ``chip_smoke.py``'s ``mesh`` phase and the multi-rank tests run these; a
 job returns plain tensors and numbers (unsharded where the caller asks),
@@ -58,9 +59,13 @@ def run_jobs(rank: int, jobs) -> list:
     """``(name, job)`` pairs of this module's jobs run in order on every
     rank (one spawn, one process group, for several runs)."""
     fns = {"ep": ep_job, "step": step_job, "norm": norm_job,
-           "collectives": collectives_job}
+           "collectives": collectives_job, "prefill": prefill_job,
+           "decode": decode_job}
     out = []
     for name, job in jobs:
+        if "conv_from" in job:
+            # a run on the card started from the same ranks' CPU tails
+            job = dict(job, conv_tails=out[job["conv_from"]]["conv_tails"])
         t0 = time.perf_counter()
         out.append(fns[name](rank, job))
         out[-1]["job_seconds"] = time.perf_counter() - t0
@@ -217,6 +222,124 @@ def norm_job(rank: int, job: dict) -> dict:
             "coef": float(coef), "clipped": out}
 
 
+def decode_job(rank: int, job: dict) -> dict:
+    """A sharded prefill of ``job["batch"]`` (numpy: ``tokens`` (B, S),
+    an encoder-decoder's ``enc_embeds``, a VLM's ``image_embeds``) into
+    caches of ``job["cache_len"]`` slots in ``job["dtype"]``, then one
+    decode step for each of ``job["decode_tokens"]`` (numpy (steps, B,
+    1), fixed inputs so that a sharded and an unsharded run see the
+    same), on a ``job["mesh"]`` (data, model) mesh in the serve layout
+    (``shardings.serve_layout``). Params: ``job["params"]`` (the
+    reference's, numpy) or ``init_params`` from ``job["seed"]`` in
+    ``job["dtype"]``. Every rank returns its logits rows of each call,
+    its collective counts and their closed form
+    (:func:`serve_collectives`), seconds, K1 / K3 launches and peak
+    device memory; with ``job["caches"]`` its cache shards after the
+    prefill (``caches_prefill``) and after the last call; with
+    ``job["record_conv"]`` / ``job["conv_from"]`` the Mamba conv tails of
+    each decode step recorded / taken from an earlier job of the spawn
+    (:func:`_conv_tails`); with ``job["capacity"]`` the MoE at that
+    capacity factor; rank 0 also
+    the logits of every row (``logits_full``) and, with
+    ``job["unshard"]``, the caches unsharded."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as k3
+    cfg = job["cfg"]
+    mesh = make_host_mesh(*job["mesh"])
+    dev = _device(job)
+    if "params" in job:
+        params = params_from_jax(job["params"], dev)
+    else:
+        params = mdl.init_params(cfg, job["seed"], dtype=job["dtype"],
+                                 device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in job["batch"].items()}
+    B, S = batch["tokens"].shape
+    shapes = mdl.init_caches(cfg, B, job["cache_len"], dtype=job["dtype"],
+                             device="meta")
+    layout = sh.serve_layout(params, batch, shapes, mesh)
+    cspecs = sh.cache_specs(shapes, mesh)
+    local = sh.shard_tree(params, layout.params, mesh)
+    del params
+    caches = sh.shard_caches(mdl.init_caches(
+        cfg, B, job["cache_len"], dtype=job["dtype"], device=dev), mesh)
+    bspec = sh.P(layout.batch_axes or None)
+    lbatch = {k: sh.local_shard(v, bspec, mesh) for k, v in batch.items()}
+    pos = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    out = {"rank": rank, "batch_axes": layout.batch_axes, "logits": [],
+           "counts": [], "expected_counts": [], "seconds": []}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = (fa.fwd_launches, k3.launches)
+    calls = [None] + list(job.get("decode_tokens", ()))
+    if job.get("record_conv"):
+        out["conv_tails"] = []
+    for i, tok in enumerate(calls):
+        if tok is None:
+            out["expected_counts"].append(serve_collectives(
+                cfg, layout, local, caches, tuple(lbatch["tokens"].shape),
+                "prefill"))
+        else:
+            _conv_tails(caches, job, out, i - 1)
+            tl = sh.local_shard(torch.from_numpy(tok).to(dev), bspec, mesh)
+            out["expected_counts"].append(serve_collectives(
+                cfg, layout, local, caches, tuple(tl.shape), "decode"))
+        coll.reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with capacity(job.get("capacity")):
+            if tok is None:
+                logits, caches = mdl.prefill(local, cfg, lbatch, caches,
+                                             layout=layout)
+            else:
+                logits, caches = mdl.decode_step(local, cfg, tl, pos, caches,
+                                                 layout=layout)
+                pos += 1
+        _sync(dev)
+        out["seconds"].append(time.perf_counter() - t0)
+        out["counts"].append(coll.counts())
+        out["logits"].append(logits.cpu())
+        if tok is None and job.get("caches"):
+            out["caches_prefill"] = tree.tree_map(
+                lambda a: a.to("cpu", copy=True), caches)
+    out["k1_launches"] = fa.fwd_launches - launches0[0]
+    out["k3_launches"] = k3.launches - launches0[1]
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if job.get("caches"):
+        out["caches"] = tree.tree_map(lambda a: a.cpu(), caches)
+    full = [sh.unshard(a.to(dev), sh.P(layout.batch_axes or None, None),
+                       mesh) for a in out["logits"]]
+    if rank == 0:
+        out["logits_full"] = [a.cpu() for a in full]
+    if job.get("unshard"):
+        fc = sh.unshard_tree(caches, cspecs, mesh)
+        if rank == 0:
+            out["caches_full"] = tree.tree_map(lambda a: a.cpu(), fc)
+    return out
+
+
+def _conv_tails(caches, job, out, step: int) -> None:
+    """Before decode step ``step``: record this rank's Mamba conv tails
+    (``job["record_conv"]``), or copy in the tails another run recorded
+    (``job["conv_tails"]``, from ``"conv_from"``: the card's run started
+    from its CPU twin's tails, as the single-card Mamba gates do — a tail
+    value is bf16 and can round the other way on the card)."""
+    conv = [(p, t) for p, t in tree.flatten_with_path(caches)
+            if p.endswith(".conv")]
+    if job.get("record_conv"):
+        out["conv_tails"].append({p: t.to("cpu", copy=True) for p, t in conv})
+    if "conv_tails" in job:
+        src = job["conv_tails"][step]
+        with torch.no_grad():
+            for p, t in conv:
+                t.copy_(src[p])
+
+
+def prefill_job(rank: int, job: dict) -> dict:
+    """:func:`decode_job`'s prefill alone."""
+    return decode_job(rank, dict(job, decode_tokens=()))
+
+
 def _has_moe(cfg) -> bool:
     return any(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
 
@@ -370,9 +493,10 @@ def _add(c, kind, operand: int, result: int, n: int = 1) -> None:
     c[kind]["result_bytes"] += n * result
 
 
-def _gather_unit(c, mesh, local_shape, spec, itemsize, keep, uses: int):
-    """``uses`` gathers of one leaf and the one reduce-scatter of its
-    gradient."""
+def _gather_unit(c, mesh, local_shape, spec, itemsize, keep, uses: int,
+                 grad: bool = True):
+    """``uses`` gathers of one leaf and (``grad``) the one reduce-scatter
+    of its gradient."""
     steps = []
     nbytes = math.prod(local_shape) * itemsize
     for d, entry in enumerate(spec):
@@ -384,8 +508,51 @@ def _gather_unit(c, mesh, local_shape, spec, itemsize, keep, uses: int):
             nbytes *= n
     for op, res in steps:
         _add(c, "all-gather", op, res, uses)
-    for op, res in reversed(steps):
+    for op, res in reversed(steps if grad else ()):
         _add(c, "reduce-scatter", res, op)
+
+
+def _param_gathers(c, cfg, shapes, specs, mesh, *, uses: int, grad: bool,
+                   encoder: bool) -> None:
+    """The gathers at use of every parameter leaf (``shapes``: full-size
+    leaves in the shards' dtypes): each block and period slice ``uses``
+    times, the embedding, head and final norm once (the embedding again as
+    a tied head), an encoder-decoder's encoder stack when ``encoder``;
+    with ``grad`` one reduce-scatter of each gathered gradient."""
+    def unit(local_tree, spec_tree, n):
+        for (p, leaf), spec in zip(tree.flatten_with_path(local_tree),
+                                   tree.leaves(spec_tree)):
+            # the leaf's dimensions the model's gather leaves sharded
+            _gather_unit(c, mesh, sh.local_shape(leaf.shape, spec, mesh),
+                         spec, leaf.element_size(),
+                         moe_ep.stationary_dims(p, spec), n, grad)
+
+    def stack(sp, spec_sp, plan):
+        for part in ("prefix", "suffix"):
+            for j in range(len(getattr(plan, part))):
+                unit(sp[part][j], spec_sp[part][j], uses)
+        if plan.n_periods:
+            one = mdl._period_slice(sp["periods"], 0)
+            for _ in range(plan.n_periods):
+                unit(one, sh.slice_specs(spec_sp["periods"]), uses)
+
+    tops = ["embed", "final_norm"] + (["embed"] if cfg.tie_embeddings
+                                      else ["unembed"])
+    for k in tops:
+        unit(shapes[k], specs[k], 1)
+    stack(shapes, specs, blk.build_plan(cfg))
+    if cfg.family == "encdec" and encoder:
+        stack(shapes["encoder"], specs["encoder"], mdl._encoder_plan(cfg))
+        unit(shapes["encoder"]["final_norm"],
+             specs["encoder"]["final_norm"], 1)
+
+
+def _full_shapes(cfg, params):
+    """The full-size parameter tree on ``meta``, in the shards' dtypes."""
+    return tree.tree_map(
+        lambda m, p: m.to(p.dtype),
+        mdl.init_params(cfg, 0, dtype=params["embed"].dtype, device="meta"),
+        params)
 
 
 def step_collectives(cfg, layout, local_tokens_shape, use_ep: bool,
@@ -408,38 +575,10 @@ def step_collectives(cfg, layout, local_tokens_shape, use_ep: bool,
     cf = 1.25 if capacity_factor is None else capacity_factor
     U = 2 if remat else 1
     c = _zero()
-    shapes = tree.tree_map(
-        lambda m, p: m.to(p.dtype),
-        mdl.init_params(cfg, 0, dtype=params["embed"].dtype, device="meta"),
-        params)
+    shapes = _full_shapes(cfg, params)
     specs = layout.params
-
-    def unit(local_tree, spec_tree, uses):
-        for (p, leaf), spec in zip(tree.flatten_with_path(local_tree),
-                                   tree.leaves(spec_tree)):
-            # the leaf's dimensions the model's gather leaves sharded
-            _gather_unit(c, mesh, sh.local_shape(leaf.shape, spec, mesh),
-                         spec, leaf.element_size(),
-                         moe_ep.stationary_dims(p, spec), uses)
-
-    def stack(sp, spec_sp, plan):
-        for part in ("prefix", "suffix"):
-            for j in range(len(getattr(plan, part))):
-                unit(sp[part][j], spec_sp[part][j], U)
-        if plan.n_periods:
-            one = mdl._period_slice(sp["periods"], 0)
-            for _ in range(plan.n_periods):
-                unit(one, sh.slice_specs(spec_sp["periods"]), U)
-
-    tops = ["embed", "final_norm"] + (["embed"] if cfg.tie_embeddings
-                                      else ["unembed"])
-    for k in tops:
-        unit(shapes[k], specs[k], 1)
-    stack(shapes, specs, blk.build_plan(cfg))
-    if cfg.family == "encdec":
-        stack(shapes["encoder"], specs["encoder"], mdl._encoder_plan(cfg))
-        unit(shapes["encoder"]["final_norm"],
-             specs["encoder"]["final_norm"], 1)
+    _param_gathers(c, cfg, shapes, specs, mesh, uses=U, grad=True,
+                   encoder=True)
 
     # MoE layers
     n_moe = sum(1 for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
@@ -475,6 +614,58 @@ def step_collectives(cfg, layout, local_tokens_shape, use_ep: bool,
     for axes in norm_axes:
         if mesh.axes_size(axes) > 1:
             _add(c, "all-reduce", 4, 4)
+    return c
+
+
+def serve_collectives(cfg, layout, params, caches, batch_shape,
+                      mode: str):
+    """What one sharded ``prefill`` or ``decode_step`` (``mode``) moves on
+    each rank, by kind: every block and period slice gathered at use once
+    (no gradients, so no reduce-scatter), the embedding, head and final
+    norm once (the embedding again as a tied head), an encoder-decoder's
+    encoder in prefill; each MoE layer's gather of its tokens over the
+    batch axes; in decode, one all-gather over "model" of the partial
+    softmax (max, sum, f32 accumulator) of each attention layer whose
+    cache is split along the sequence, of K1's (out, lse) of each
+    cross-attention over split frames, and of each split Mamba state's
+    conv tail and h. ``params`` and ``caches`` are this rank's shards
+    (their dtypes and split dimensions count); ``batch_shape`` the rank's
+    ``(B, S)`` tokens."""
+    mesh = layout.mesh
+    c = _zero()
+    _param_gathers(c, cfg, _full_shapes(cfg, params), layout.params, mesh,
+                   uses=1, grad=False, encoder=mode == "prefill")
+    B, S = batch_shape
+    if mode == "prefill" and cfg.family == "vlm":
+        S += cfg.frontend_tokens
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+    n = mesh.axes_size(layout.batch_axes)
+    if n_moe and n > 1:
+        xb = B * S * cfg.d_model * params["embed"].element_size()
+        _add(c, "all-gather", xb, xb * n, n_moe)
+    if mode != "decode":
+        return c
+    m = mesh.shape["model"]
+
+    def parts(nbytes):
+        _add(c, "all-gather", nbytes, nbytes * m)
+
+    for u in mdl.cache_units(cfg):
+        unit = mdl.get_cache_unit(caches, u)
+        kv = unit.get("kv")
+        if kv is not None and hasattr(kv, "latent"):
+            if kv.latent.shape[1] != kv.slot_pos.shape[0]:
+                parts(kv.latent.shape[0] * cfg.num_heads
+                      * (kv.latent.shape[2] + 2) * 4)
+        elif kv is not None and kv.k.shape[2] != kv.slot_pos.shape[0]:
+            parts(kv.k.shape[0] * cfg.num_heads * (kv.v.shape[3] + 2) * 4)
+        ckv = unit.get("cross_kv")
+        if ckv is not None and ckv.k.shape[2] != ckv.slot_pos.shape[0]:
+            parts(ckv.k.shape[0] * cfg.num_heads * (ckv.v.shape[3] + 1) * 4)
+        st = unit.get("ssm")
+        if st is not None and st.h.shape[1] != cfg.d_inner:
+            for t in st:
+                parts(t.numel() * t.element_size())
     return c
 
 

@@ -272,10 +272,12 @@ def shard_caches(caches, mesh):
 def gather(x: torch.Tensor, spec: P, mesh, keep=()) -> torch.Tensor:
     """The full tensor from this rank's shard ``x``: every sharded
     dimension gathered, lowest first, except the dimensions in ``keep``
-    (differentiable: the gradient is reduce-scattered back)."""
+    (differentiable: the gradient is reduce-scattered back). The result
+    is contiguous, as the unsharded leaf is: a product with a strided
+    view of the gathered rows would round otherwise."""
     for d, entry in enumerate(spec):
         if entry is not None and d not in keep:
-            x = coll.all_gather(x, d, mesh, entry)
+            x = coll.all_gather(x, d, mesh, entry).contiguous()
     return x
 
 
@@ -314,7 +316,7 @@ def slice_specs(specs):
 
 
 # ---------------------------------------------------------------------------
-# The sharded train step's layout
+# The sharded steps' layouts
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -338,3 +340,26 @@ def train_layout(params, batch, mesh, *, expert_parallel: bool = False,
                                     expert_parallel=expert_parallel,
                                     fully_shard=fully_shard),
                   mesh.axes(bspec[0]))
+
+
+def serve_layout(params, batch, caches, mesh) -> Layout:
+    """The layout of a sharded prefill or decode step (the reference's
+    ``lower_prefill`` / ``lower_decode``): parameters over "model"
+    (``param_pspec``, no EP, not fully sharded), the batch over the batch
+    axes (``batch_pspec``), the caches by ``cache_pspec`` (their sequence
+    or channels on "model"). Shapes only: ``meta`` tensors do. A batch
+    split over fewer axes than the caches' batch dimension (2 x 16 x 16
+    at a batch that 16 divides and 32 does not) is refused: a rank's cache
+    rows would not be its batch rows."""
+    bspec = batch_pspec(batch["tokens"].shape, mesh)
+    axes = mesh.axes(bspec[0])
+    for (name, leaf), spec in zip(tree.flatten_with_path(caches),
+                                  tree.leaves(cache_specs(caches, mesh))):
+        if "slot_pos" in name:
+            continue
+        off = 1 if "periods" in name else 0
+        if mesh.axes(spec[off]) != axes:
+            raise ValueError(f"the batch is split over {axes}, the cache "
+                             f"leaf {name}'s batch over "
+                             f"{mesh.axes(spec[off])}")
+    return Layout(mesh, param_specs(params, mesh), axes)

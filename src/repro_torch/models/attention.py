@@ -21,6 +21,10 @@ clamped start (``_clamped_start``), so the two packages fill the same
 slots — a ring prefill of S > window tokens with S % window != 0
 therefore lands at slot 0, as in the reference (ROADMAP.md, section 3,
 "Known gaps in the reference").
+
+In a sharded serve step a cache may hold this rank's slots of the
+sequence (``models.seqshard``): writes land in the slots it holds, and
+decode attention combines the ranks' partial softmaxes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import seqshard
 from repro_torch.models.common import (apply_rope, dense_init,
                                        init_rms_scale, matmul, rms_norm)
 
@@ -100,19 +105,27 @@ def decode_attention(q, k, v, *, kv_pos, pos: int,
     positions (-big for empty). pos: current position. Returns
     (B,Hq,1,hdv). As in the reference, an empty slot passes the causal
     test of an unwindowed layer and takes part in the softmax with a
-    zero key (ROADMAP.md, section 3, "Known gaps in the reference")."""
+    zero key (ROADMAP.md, section 3, "Known gaps in the reference").
+    In a sharded step k and v may be this rank's slots of the sequence
+    (``models.seqshard``): the ranks' partial softmaxes are combined."""
     B, Hq, _, hd = q.shape
-    Hk = k.shape[1]
+    Hk, S = k.shape[1], k.shape[2]
     G = Hq // Hk
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    split = seqshard.is_split(S, kv_pos.shape[0])
+    lo = seqshard.offset(S, kv_pos.shape[0])
+    kv_pos = kv_pos[lo:lo + S]
     qg = q.reshape(B, Hk, G, hd).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * sc
     ok = kv_pos <= pos
     if window is not None:
         ok &= (pos - kv_pos) < window
     s = torch.where(ok[None, None, None, :], s, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
+    if split:
+        o = seqshard.combine_softmax(s, v, "bhgs,bhsd->bhgd")
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return o.reshape(B, Hq, 1, v.shape[-1]).to(q.dtype)
 
 
@@ -179,10 +192,10 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
         if cache is None:
             raise ValueError("decode needs the KV cache to update")
         pos = int(pos)
-        s_cache = cache.k.shape[2]
+        s_cache = cache.slot_pos.shape[0]
         slot = pos % s_cache if window is not None else pos
-        cache.k[:, :, slot:slot + 1] = k.to(cache.k.dtype)
-        cache.v[:, :, slot:slot + 1] = v.to(cache.v.dtype)
+        seqshard.write(cache.k, k, slot, 2, s_cache)
+        seqshard.write(cache.v, v, slot, 2, s_cache)
         cache.slot_pos[slot] = pos
         o = decode_attention(q, cache.k, cache.v, kv_pos=cache.slot_pos,
                              pos=pos, window=window)
@@ -193,15 +206,16 @@ def gqa_apply(params, x, *, cfg, window: Optional[int], theta: float,
         else:
             o = flash_attention(q, k, v, causal=causal, window=window)
         if mode == "prefill" and cache is not None:
-            s_cache = cache.k.shape[2]
+            s_cache = cache.slot_pos.shape[0]
             # a windowed layer keeps only the trailing `window` positions
             keep = min(window, S) if window is not None else S
+            if keep > s_cache:
+                raise ValueError(f"a prefill of {S} positions does not fit "
+                                 f"a cache of {s_cache} slots")
             start = (S - keep) % s_cache if window is not None else 0
             start = _clamped_start(start, keep, s_cache)
-            cache.k[:, :, start:start + keep] = k[:, :, S - keep:].to(
-                cache.k.dtype)
-            cache.v[:, :, start:start + keep] = v[:, :, S - keep:].to(
-                cache.v.dtype)
+            seqshard.write(cache.k, k[:, :, S - keep:], start, 2, s_cache)
+            seqshard.write(cache.v, v[:, :, S - keep:], start, 2, s_cache)
             cache.slot_pos[start:start + keep] = torch.arange(
                 S - keep, S, dtype=torch.int32, device=x.device)
     o = o.transpose(1, 2).reshape(B, S, Hq * hd)
@@ -290,19 +304,27 @@ def mla_apply(params, x, *, cfg, theta: float,
         if cache is None:
             raise ValueError("decode needs the MLA cache to update")
         pos = int(pos)
-        cache.latent[:, pos:pos + 1] = latent.to(cache.latent.dtype)
-        cache.k_rope[:, pos:pos + 1] = k_rope.to(cache.k_rope.dtype)
+        full = cache.slot_pos.shape[0]
+        seqshard.write(cache.latent, latent, pos, 1, full)
+        seqshard.write(cache.k_rope, k_rope, pos, 1, full)
         cache.slot_pos[pos] = pos
         cl, cr = cache.latent.float(), cache.k_rope.float()
+        T = cl.shape[1]
+        split = seqshard.is_split(T, full)
+        lo = seqshard.offset(T, full)
         w_uk = params["w_uk"].reshape(r, H, nope).float()
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
         s_lat = torch.einsum("bshr,btr->bhst", q_lat, cl)
         s_rope = torch.einsum("bshn,btn->bhst", q_rope.float(), cr)
         s = (s_lat + s_rope) * scale  # (B,H,1,T)
-        ok = cache.slot_pos <= pos
+        ok = cache.slot_pos[lo:lo + T] <= pos
         s = torch.where(ok[None, None, None, :], s, _NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", p, cl)
+        if split:
+            o_lat = seqshard.combine_softmax(s, cl, "bhst,btr->bhsr"
+                                             ).transpose(1, 2)
+        else:
+            p = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", p, cl)
         w_uv = params["w_uv"].reshape(r, H, vhd).float()
         o = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
     else:
@@ -315,8 +337,9 @@ def mla_apply(params, x, *, cfg, theta: float,
                             vfull.transpose(1, 2), causal=cfg.causal,
                             scale=scale).transpose(1, 2)
         if mode == "prefill" and cache is not None:
-            cache.latent[:, :S] = latent.to(cache.latent.dtype)
-            cache.k_rope[:, :S] = k_rope.to(cache.k_rope.dtype)
+            full = cache.slot_pos.shape[0]
+            seqshard.write(cache.latent, latent, 0, 1, full)
+            seqshard.write(cache.k_rope, k_rope, 0, 1, full)
             cache.slot_pos[:S] = torch.arange(S, dtype=torch.int32,
                                               device=x.device)
     o = o.reshape(B, S, H * vhd).to(x.dtype)

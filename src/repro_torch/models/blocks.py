@@ -26,9 +26,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
-from repro_torch.models import moe_ep
+from repro_torch.models import moe_ep, seqshard
 from repro_torch.models.moe import moe_init
 from repro_torch.models.common import init_rms_scale, matmul, rms_norm
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -174,11 +175,23 @@ def block_cache_shape(cfg, kind: LayerKind, batch: int, seq_len: int,
 
 def _cross_attend(params, x, cache_kv: attn_lib.KVCache, cfg):
     """Decoder cross-attention against the encoder's K/V: K1 non-causal,
-    Sq (the decoder's tokens, 1 in decode) against Skv (the frames)."""
+    Sq (the decoder's tokens, 1 in decode) against Skv (the frames). In a
+    sharded decode the cache may hold this rank's frames
+    (``models.seqshard``): K1 runs against them and the ranks' outputs
+    are combined by K1's own ``lse``."""
     B, S, _ = x.shape
     Hq, hd = cfg.num_heads, cfg.head_dim
     q = matmul(x, params["wq"]).reshape(B, S, Hq, hd).transpose(1, 2)
-    o = attn_lib.flash_attention(q, cache_kv.k, cache_kv.v, causal=False)
+    if seqshard.is_split(cache_kv.k.shape[2], cache_kv.slot_pos.shape[0]):
+        k, v = cache_kv.k, cache_kv.v
+        dt = torch.promote_types(q.dtype, k.dtype)
+        out, lse = fa.flash_attention_fwd(
+            q.to(dt).contiguous(), k.to(dt).contiguous(),
+            v.to(dt).contiguous(), causal=False)
+        o = seqshard.combine_lse(out, lse).to(q.dtype)
+    else:
+        o = attn_lib.flash_attention(q, cache_kv.k, cache_kv.v,
+                                     causal=False)
     o = o.transpose(1, 2).reshape(B, S, Hq * hd)
     return matmul(o, params["wo"])
 
@@ -233,8 +246,11 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
             ckv = _build_cross_kv(params["cross"], enc_out, cfg)
             if mode == "prefill" and cache is not None:
                 with torch.no_grad():
-                    for dst, src in zip(cache["cross_kv"], ckv):
-                        dst.copy_(src)
+                    dst = cache["cross_kv"]
+                    F = dst.slot_pos.shape[0]
+                    seqshard.write(dst.k, ckv.k, 0, 2, F)
+                    seqshard.write(dst.v, ckv.v, 0, 2, F)
+                    dst.slot_pos.copy_(ckv.slot_pos)
         x = x + _cross_attend(params["cross"], hc, ckv, cfg)
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
     if kind.moe:

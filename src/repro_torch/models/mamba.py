@@ -23,6 +23,10 @@ whatever the model dtype and its decode keeps the dtype it finds, so
 after a prefill every write is rounded to bf16; the port rounds every
 write so. (Only a decode from a never-prefilled f32 state would keep
 f32 tail values in the reference.)
+
+In a sharded serve step a state may hold this rank's channels of di
+(``models.seqshard``): decode gathers it at use and keeps this rank's
+slice of the new state; prefill keeps its slice of the state it computes.
 """
 from __future__ import annotations
 
@@ -33,7 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import _shape_only
 from repro_torch.kernels import selective_scan as k3
+from repro_torch.models import seqshard
 from repro_torch.models.common import dense_init
 
 
@@ -72,12 +78,54 @@ def mamba_init(generator, cfg, dtype=torch.bfloat16, device=None):
     }
 
 
+class _ShapeOnlyScan(torch.autograd.Function):
+    """:func:`selective_scan` on ``meta`` tensors (the dry-run): empty
+    outputs, and the FLOPs the chunked loop counts under
+    ``FlopCounterMode`` (its per-step ``einsum("bds,bs->bd")``, 2 B S di
+    st a pass) reported to ``kernels._shape_only``: one pass each time
+    the forward runs (a layer's checkpoint recomputes it, which saving
+    the outputs asks for); backward each chunk's recompute (all its steps
+    but the last, whose product nothing saves, when the checkpoint stops
+    early, as it does outside a sharded step) and the einsum's two
+    products (``tests/test_torch_cost.py`` holds the two equal). A loop
+    of S steps a layer on ``meta`` would cost millions of dispatches at
+    4 k tokens."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, D, h0, chunk):
+        B, S, di = x.shape
+        y = torch.empty_like(x)
+        h = torch.empty((B, di, A.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+        flag = torch.utils.checkpoint._enable_checkpoint_early_stop
+        early = True if flag is None else flag
+        ctx.recompute = (chunk - 1) / chunk if early else 1.0
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D, y, h)
+        ctx.h0 = h0
+        _shape_only.record(k3.scan_flops(x, A), (x, dt, A, Bc, Cc, D),
+                           (y, h))
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        x, dt, A, Bc, Cc, D, y, h = ctx.saved_tensors
+        ins = (x, dt, A, Bc, Cc, D, ctx.h0)
+        grads = tuple(torch.empty_like(t) if t is not None
+                      and ctx.needs_input_grad[i] else None
+                      for i, t in enumerate(ins))
+        _shape_only.record((ctx.recompute + 2) * k3.scan_flops(x, A),
+                           (x, dt, A, Bc, Cc, D, gy, gh),
+                           [g for g in grads if g is not None])
+        return grads + (None,)
+
+
 def selective_scan(x, dt, A, Bc, Cc, D, *, h0=None, chunk: int = 64
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The model's chunked scan (differentiable): chunks of ``chunk``
     steps (halved until it divides S), each the f32 recurrence of
     ``kernels.selective_scan.scan_steps`` under ``torch.utils.checkpoint``,
-    carrying h from ``h0`` (zeros if None).
+    carrying h from ``h0`` (zeros if None). ``meta`` tensors take
+    :class:`_ShapeOnlyScan`.
 
     x, dt: (B, S, di); Bc, Cc: (B, S, st); A: (di, st); D: (di,).
     Returns (y (B, S, di) in x's dtype, h_final (B, di, st) f32)."""
@@ -85,6 +133,8 @@ def selective_scan(x, dt, A, Bc, Cc, D, *, h0=None, chunk: int = 64
     c = chunk
     while S % c != 0:
         c //= 2
+    if x.is_meta:
+        return _ShapeOnlyScan.apply(x, dt, A, Bc, Cc, D, h0, c)
     h = h0 if h0 is not None else torch.zeros(
         (B, di, A.shape[-1]), dtype=torch.float32, device=x.device)
     xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
@@ -134,7 +184,10 @@ def mamba_apply(params, x, cfg, *, state: Optional[MambaState] = None,
     A = -torch.exp(params["A_log"])
 
     if mode == "decode":
-        xp = torch.cat([state.conv.to(x_in.dtype), x_in], dim=1)  # (B,K,di)
+        # a sharded step's state holds this rank's channels: gathered at
+        # use (x_proj contracts over all of di), this rank's slice kept
+        conv = seqshard.gather(state.conv, 2, di)
+        xp = torch.cat([conv.to(x_in.dtype), x_in], dim=1)        # (B,K,di)
         xc = (xp.float() * params["conv_w"].float()).sum(dim=1) \
             + params["conv_b"].float()
         xc = F.silu(xc).to(x.dtype)[:, None, :]                   # (B,1,di)
@@ -150,13 +203,14 @@ def mamba_apply(params, x, cfg, *, state: Optional[MambaState] = None,
 
     if mode == "decode":
         da = torch.exp(dt[:, 0, :, None] * A)
-        h = da * state.h + (dt[:, 0] * xc[:, 0].float())[..., None] \
+        h = da * seqshard.gather(state.h, 1, di) \
+            + (dt[:, 0] * xc[:, 0].float())[..., None] \
             * Bc[:, 0].float()[:, None, :]
         y = (h * Cc[:, 0].float()[:, None, :]).sum(dim=-1)
         y = (y + xc[:, 0].float() * params["D"])[:, None, :]
         with torch.no_grad():
-            state.conv.copy_(new_conv)
-            state.h.copy_(h)
+            state.conv.copy_(seqshard.keep(new_conv, 2, state.conv.shape[2]))
+            state.h.copy_(seqshard.keep(h, 1, state.h.shape[1]))
     elif mode == "prefill":
         y, h = k3.selective_scan_fwd(xc, dt, A, Bc, Cc, params["D"])
         if S < K - 1:
@@ -166,8 +220,9 @@ def mamba_apply(params, x, cfg, *, state: Optional[MambaState] = None,
         else:
             tail = x_in[:, S - (K - 1):, :]
         with torch.no_grad():
-            state.conv.copy_(tail.to(torch.bfloat16))
-            state.h.copy_(h)
+            state.conv.copy_(seqshard.keep(tail.to(torch.bfloat16), 2,
+                                           state.conv.shape[2]))
+            state.h.copy_(seqshard.keep(h, 1, state.h.shape[1]))
     else:
         y, _ = selective_scan(xc, dt, A, Bc, Cc, params["D"])
 

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from repro_torch import resolve_device, tree
 from repro_torch.launch import shardings as sh
 from repro_torch.models import blocks as blk
-from repro_torch.models import moe_ep
+from repro_torch.models import moe_ep, seqshard
 from repro_torch.models.common import (embed_init, init_rms_scale, rms_norm,
                                        sinusoidal_pos_emb)
 
@@ -65,8 +65,9 @@ def sharded(layout):
     backward recomputes checkpointed layers, which gather again and route
     their MoE as the forward did): the MoE's view of the split batch, and
     checkpoints that recompute their whole layer, so the recompute runs
-    the forward's collectives. ``layout`` ``None`` is the unsharded
-    model, which an activation spec does not fit."""
+    the forward's collectives; a serve step's caches split over "model"
+    (``models.seqshard``). ``layout`` ``None`` is the unsharded model,
+    which an activation spec does not fit."""
     if layout is None:
         if _ACT_SPEC is not None:
             raise ValueError(f"an activation spec {tuple(_ACT_SPEC)} is set "
@@ -80,6 +81,7 @@ def sharded(layout):
                              f"{axes}, the step's batch over "
                              f"{tuple(layout.batch_axes)}")
     with moe_ep.sharded_batch(layout.mesh, layout.batch_axes), \
+            seqshard.split_over(layout.mesh, "model"), \
             set_checkpoint_early_stop(False):
         yield
 
@@ -361,10 +363,8 @@ def loss_fn(params, cfg, batch, *, remat: bool = True, layout=None):
                                      layout=layout)
         labels, weights = labels_and_weights(cfg, batch)
         specs = layout.params if layout is not None else None
-        head = "embed" if cfg.tie_embeddings else "unembed"
-        unembed = unembed_matrix({head: _top(params, specs, head, layout)},
-                                 cfg)
-        loss = chunked_xent(hidden, unembed, labels, weights)
+        loss = chunked_xent(hidden, _head(params, specs, cfg, layout),
+                            labels, weights)
     return loss + AUX_COEF * aux
 
 
@@ -436,31 +436,53 @@ def set_cache_unit(caches, unit, value):
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch, caches):
+def prefill(params, cfg, batch, caches, *, layout=None):
     """Process the prompt (an encoder-decoder's frames through the encoder
     first, a VLM's image prefix before its text); fill ``caches`` in
-    place; return (last_logits f32 (B,V), caches)."""
+    place; return (last_logits f32 (B,V), caches). With a ``layout``
+    (``launch.shardings.serve_layout``): ``params`` are this rank's
+    shards, gathered at use, ``batch`` its rows, ``caches`` its cache
+    shards (``launch.shardings.shard_caches``); the logits are its rows,
+    the whole vocabulary."""
     plan = blk.build_plan(cfg)
-    enc_out = None
-    if cfg.family == "encdec":
-        enc_out = _encode(params, cfg, batch["enc_embeds"], remat=False)
-    x = _embed_inputs(params, cfg, batch)
-    x, caches, _ = _run_stack(params, x, cfg, plan, mode="prefill",
-                              caches=caches, enc_out=enc_out)
-    h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    logits = (h @ unembed_matrix(params, cfg))[:, 0, :]
+    specs = layout.params if layout is not None else None
+    with sharded(layout):
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = _encode(params, cfg, batch["enc_embeds"], remat=False,
+                              layout=layout)
+        x = _embed_inputs({"embed": _top(params, specs, "embed", layout)},
+                          cfg, batch)
+        x, caches, _ = _run_stack(params, x, cfg, plan, mode="prefill",
+                                  caches=caches, enc_out=enc_out,
+                                  layout=layout, specs=specs)
+        h = rms_norm(x[:, -1:, :], _top(params, specs, "final_norm", layout),
+                     cfg.norm_eps)
+        logits = (h @ _head(params, specs, cfg, layout))[:, 0, :]
     return logits.float(), caches
 
 
 @torch.no_grad()
-def decode_step(params, cfg, token, pos: int, caches):
-    """One decode step. token: (B,1) int; pos: the position.
+def decode_step(params, cfg, token, pos: int, caches, *, layout=None):
+    """One decode step. token: (B,1) int; pos: the position. With a
+    ``layout``, as :func:`prefill`: this rank's shards and rows.
 
     Returns (logits (B,V) f32, caches updated in place)."""
     plan = blk.build_plan(cfg)
-    x = _embed_inputs(params, cfg, {"tokens": token}, decode=True)
-    x, caches, _ = _run_stack(params, x, cfg, plan, mode="decode",
-                              caches=caches, pos=int(pos))
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (h @ unembed_matrix(params, cfg))[:, 0, :]
+    specs = layout.params if layout is not None else None
+    with sharded(layout):
+        x = _embed_inputs({"embed": _top(params, specs, "embed", layout)},
+                          cfg, {"tokens": token}, decode=True)
+        x, caches, _ = _run_stack(params, x, cfg, plan, mode="decode",
+                                  caches=caches, pos=int(pos),
+                                  layout=layout, specs=specs)
+        h = rms_norm(x, _top(params, specs, "final_norm", layout),
+                     cfg.norm_eps)
+        logits = (h @ _head(params, specs, cfg, layout))[:, 0, :]
     return logits.float(), caches
+
+
+def _head(params, specs, cfg, layout):
+    """The (d, V) output projection, gathered at use under a layout."""
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    return unembed_matrix({key: _top(params, specs, key, layout)}, cfg)

@@ -141,9 +141,17 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
 
 
 def test_wrapper_refuses_devices_without_a_path():
+    """The devices with a path are CPU (the plain version), CUDA (the
+    kernel) and, since the dry-run, ``meta``: shape-only outputs, no
+    launch (``tests/test_torch_cost.py`` holds its FLOPs). No other
+    device can be made here, so this holds the meta path's shapes."""
     q = torch.empty((1, 2, 64, 64), device="meta")
-    with pytest.raises(ValueError, match="device"):
-        fa.flash_attention_fwd(q, q, q)
+    before = fa.fwd_launches
+    out, lse = fa.flash_attention_fwd(q, q, q)
+    assert fa.fwd_launches == before
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert lse.is_meta and lse.shape == (1, 2, 64)
+    assert lse.dtype == torch.float32
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "layout", "heads"])
@@ -274,10 +282,16 @@ def test_bwd_refuses_a_query_offset_and_foreign_devices():
     for fn in (fa.flash_attention_bwd, fa.flash_attention_bwd_plain):
         with pytest.raises(ValueError, match="q0"):
             fn(q, q, q, q, q, lse, q0=4)
+    # meta (the dry-run) takes the shape-only path: no launch
     m = torch.empty((1, 2, 64, 64), device="meta")
-    with pytest.raises(ValueError, match="device"):
+    with pytest.raises(ValueError, match="q0"):
         fa.flash_attention_bwd(m, m, m, m, m,
-                               torch.empty((1, 2, 64), device="meta"))
+                               torch.empty((1, 2, 64), device="meta"), q0=4)
+    before = fa.bwd_launches
+    grads = fa.flash_attention_bwd(m, m, m, m, m,
+                                   torch.empty((1, 2, 64), device="meta"))
+    assert fa.bwd_launches == before
+    assert all(g.is_meta and g.shape == m.shape for g in grads)
 
 
 def test_bwd_wrapper_runs_plain_on_cpu_without_launching():

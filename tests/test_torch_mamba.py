@@ -132,8 +132,13 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
     y2, h2 = k3.selective_scan_plain(*ins)
     assert k3.launches == before
     assert torch.equal(y, y2) and torch.equal(h, h2)
-    with pytest.raises(ValueError, match="no selective-scan path"):
-        k3.selective_scan_fwd(*(t.to("meta") for t in ins))
+    # meta tensors (the dry-run) take the shape-only path: empty outputs
+    # of the kernel's shapes, no launch, no plain version
+    ym, hm = k3.selective_scan_fwd(*(t.to("meta") for t in ins))
+    assert k3.launches == before
+    assert ym.is_meta and hm.is_meta
+    assert (ym.shape, ym.dtype, hm.shape, hm.dtype) == (
+        y.shape, y.dtype, h.shape, h.dtype)
 
 
 # The edges of the Hopper kernel's tiling that chip_smoke.py's K3 rows and
