@@ -1329,7 +1329,6 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
     0 after the engine is built (its construction sizes the residual
     payload with one forward) and read after ``finish()``."""
     import gc
-    import threading
 
     from repro_torch.core.perfmodel import StorageRatios
     from repro_torch.io import IOConfig
@@ -1361,8 +1360,6 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
                          activation_policy=policy,
                          io=IOConfig(paths=paths, chunk_bytes=8 << 20))
     eng = None
-    adam_s = [0.0] * ranks
-    lock = threading.Lock()
     try:
         state = offload_state(cfg, params)
         eng = (OffloadEngine(cfg, ocfg, 0, workdir, params=state)
@@ -1381,15 +1378,6 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
                f"SSD {sum(rk.ssd.nbytes() for rk in stacks) / 2**30:.2f} "
                f"GiB")
 
-        def timed(update, r):                 # CPU-Adam busy seconds
-            def timed_update(*a, **kw):
-                ts = time.perf_counter()
-                update(*a, **kw)
-                with lock:
-                    adam_s[r] += time.perf_counter() - ts
-            return timed_update
-        for r, rk in enumerate(stacks):
-            rk.opt_c.adam.update = timed(rk.opt_c.adam.update, r)
         spans = []                           # (call, start, end)
         mem_fwd, mem_put = [], []            # memory_allocated readings
 
@@ -1445,6 +1433,8 @@ def train_engine_run(torch, fa, fad, report, cfg, params, batches,
         allocator = {k: alloc1.get(k, 0) - alloc0.get(k, 0)
                      for k in alloc_keys}
         snap = eng.metrics_snapshot()
+        # CPU-Adam busy seconds: the optimizer coordinators' own counters
+        adam_s = [rk.opt_c.adam_busy_s for rk in stacks]
         if ranks == 1:
             byte_errs, measured = check_train_bytes(eng, cfg, ocfg, steps)
             by_rank = [measured]

@@ -23,7 +23,12 @@ Shows the core public APIs of the port:
      the prefetch hit rate and stall-seconds move
   7. the observability stack — --trace out.json runs a traced engine,
      exports a Perfetto-loadable Chrome trace (one track per I/O
-     channel thread + the executor + the hint streams), and prints the
+     channel thread + the executor's plan ops + its host work — copies,
+     syncs, optimizer waits — + the hint streams), on the time base of
+     ``torch.profiler``'s Chrome export: open it in Perfetto beside a
+     ``prof.export_chrome_trace`` of the same window and the two line
+     up (``Tracer.to_unix_ns`` maps a stamp onto the profiler's event
+     clock), and prints the
      ``obs.reconcile`` plan-vs-actual table: every (category, route)
      byte counter measured by the run against the ``plan_traffic``
      prediction, EXACT row by row, plus the stall attribution
@@ -88,8 +93,10 @@ def parse_args(argv):
                          "rejects negative or absurd depths)")
     ap.add_argument("--trace", default="", metavar="OUT.json",
                     help="run the observability demo: export a Chrome "
-                         "trace-event JSON here and print the "
-                         "plan-vs-actual reconciliation table")
+                         "trace-event JSON here (on torch.profiler's "
+                         "Chrome-trace time base: open it in Perfetto "
+                         "beside a profiler trace of the same window) and "
+                         "print the plan-vs-actual reconciliation table")
     ap.add_argument("--autotune", action="store_true",
                     help="run the online-autotuner demo: script an SSD "
                          "slowdown into the live-rate feed and watch "
@@ -247,8 +254,10 @@ def run(args, device) -> Dict[str, object]:
 
     # --- 6. span tracing + plan-vs-actual reconciliation --------------
     # trace=True turns the engine's always-compiled-in tracer on: plan
-    # ops, per-chunk I/O (queue-wait vs transfer, per path), and the
-    # hint lifecycle all land on one timeline. metrics_snapshot() is
+    # ops, the executor's host work (copies, syncs, optimizer waits),
+    # per-chunk I/O (queue-wait vs transfer, per path), the host Adam
+    # and the hint lifecycle all land on one timeline, exported on
+    # torch.profiler's Chrome-trace time base. metrics_snapshot() is
     # the versioned flat contract; obs.reconcile joins it against the
     # plan's byte predictions — exactly.
     if args.trace:
@@ -273,7 +282,8 @@ def run(args, device) -> Dict[str, object]:
             finally:
                 eng.close()
         print(f"  {len(eng.tracer)} spans -> {path} "
-              "(open in ui.perfetto.dev)")
+              "(open in ui.perfetto.dev; a torch.profiler "
+              "export_chrome_trace of the same window lines up beside it)")
         print(rec.format())
         out["reconcile_ok"] = rec.ok
         check(rec.ok, "plan-vs-actual byte reconciliation must be exact")

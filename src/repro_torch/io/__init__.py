@@ -207,8 +207,7 @@ Fault discipline: integrity, retry, failover
 A chunk op's fault walks a fixed escalation ladder; each rung acts only
 when the rung below could not, and every rung is observable
 (``chunk_retries`` / ``chunk_failovers`` / ``integrity_errors`` +
-per-path splits in ``metrics_snapshot()``, ``io.fault`` tracer
-instants):
+per-path splits in ``metrics_snapshot()``):
 
 1. **Classify** (:func:`~repro_torch.io.engine.is_transient`): EAGAIN /
    EINTR / ETIMEDOUT-class errnos and first-round CRC mismatches are

@@ -49,7 +49,8 @@ records TWO spans per executed request on its own track (= one Chrome
 trace row per thread): a *queue-wait* span (``t_submit`` -> start; how
 long the priority heap held it) and a *transfer* span (start ->
 settle; how long the body ran), both tagged with route, priority
-class, nbytes, and — on channel threads — the SSD path index. A
+class, nbytes, the request's sequence number ``req`` (what a wait on
+the request names) and — on channel threads — the SSD path index. A
 cancelled-while-queued request records nothing (no bytes moved). With
 the tracer disabled the only cost is one flag test per submit/run,
 measured by the bench-smoke gate.
@@ -70,8 +71,9 @@ from repro_torch.io.bandwidth import BandwidthSimulator, PathBandwidthSimulator
 from repro_torch.io.config import PATH_POLICIES, IOConfig
 from repro_torch.io.integrity import IntegrityError
 from repro_torch.io.staging import StagingPool
-from repro_torch.obs.tracer import (CAT_FAULT, CAT_IO_CHUNK, CAT_IO_QUEUE,
-                              CAT_IO_REQ, CAT_IO_REQ_QUEUE)
+from repro_torch.obs.tracer import (CAT_IO_CHUNK, CAT_IO_QUEUE, CAT_IO_REQ,
+                              CAT_IO_REQ_QUEUE, set_current_req,
+                              set_thread_track)
 
 
 class IOPriority(enum.IntEnum):
@@ -240,6 +242,7 @@ class _PriorityWorkers:
             self._cv.notify()
 
     def _run(self):
+        set_thread_track(threading.current_thread().name)
         while True:
             with self._cv:
                 while not self._heap and not self._closed:
@@ -252,6 +255,7 @@ class _PriorityWorkers:
             tr = self._tracer
             rec = tr is not None and tr.enabled and req.t_submit > 0.0
             if rec:
+                set_current_req(req.seq)
                 t_start = time.perf_counter()
             with self._cv:
                 self._running += 1
@@ -273,7 +277,7 @@ class _PriorityWorkers:
         worker thread's track."""
         track = threading.current_thread().name
         args = {"route": req.route, "nbytes": req.nbytes,
-                "priority": IOPriority(req.priority).name}
+                "priority": IOPriority(req.priority).name, "req": req.seq}
         if self._path_index is None:             # front (request) pool
             name = req.category or "req"
             cat_q, cat_x = CAT_IO_REQ_QUEUE, CAT_IO_REQ
@@ -428,7 +432,7 @@ class IOEngine:
 
     # ---------------- chunk level ----------------
     def _with_retry(self, fn: Callable, priority: IOPriority,
-                    path_index: int, route: str) -> Callable:
+                    path_index: int) -> Callable:
         """Wrap a chunk op in the bounded transient-retry loop: each
         attempt after a :func:`is_transient` fault backs off
         exponentially from ``retry_backoff_s``, bounded by BOTH the
@@ -453,12 +457,6 @@ class IOEngine:
                         self._stats["chunk_retries"] += 1
                     with self._backlog_lock:
                         self._path_retries[path_index] += 1
-                    tr = self.tracer
-                    if tr is not None and tr.enabled:
-                        tr.instant(threading.current_thread().name,
-                                   "retry", CAT_FAULT, path=path_index,
-                                   route=route, attempt=attempt + 1,
-                                   error=repr(e))
                     if delay > 0:
                         time.sleep(delay)
                     spent += delay
@@ -476,7 +474,7 @@ class IOEngine:
         channel-backlog counters (:meth:`route_backlog`, ``depth()``)
         the adaptive lookahead throttles on."""
         if self._retries > 0:
-            fn = self._with_retry(fn, priority, path_index, route)
+            fn = self._with_retry(fn, priority, path_index)
         req = IORequest(priority, next(self._seq), "", route, nbytes, fn,
                         None)
         tr = self.tracer
@@ -636,25 +634,16 @@ class IOEngine:
 
     def note_failover(self, from_path: int, to_path: int, name: str,
                       chunk: int):
-        """Account one chunk write rerouted off a failing path (counter
-        + tracer instant); called by ``StripedFiles``."""
+        """Account one chunk write rerouted off a failing path;
+        called by ``StripedFiles``."""
         with self._stats_lock:
             self._stats["chunk_failovers"] += 1
-        tr = self.tracer
-        if tr is not None and tr.enabled:
-            tr.instant(threading.current_thread().name, "failover",
-                       CAT_FAULT, from_path=from_path, to_path=to_path,
-                       name=name, chunk=chunk)
 
     def note_integrity_error(self, path_index: int, name: str, chunk: int):
-        """Account one CRC mismatch (counter + tracer instant); called
-        by ``StripedFiles`` just before raising ``IntegrityError``."""
+        """Account one CRC mismatch; called by ``StripedFiles`` just
+        before raising ``IntegrityError``."""
         with self._stats_lock:
             self._stats["integrity_errors"] += 1
-        tr = self.tracer
-        if tr is not None and tr.enabled:
-            tr.instant(threading.current_thread().name, "crc_mismatch",
-                       CAT_FAULT, path=path_index, name=name, chunk=chunk)
 
     @property
     def inflight_bytes(self) -> int:

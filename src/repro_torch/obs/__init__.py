@@ -9,6 +9,7 @@ from repro_torch.obs.reconcile import (STALL_STREAM,  # noqa: F401
 from repro_torch.obs.registry import (SNAPSHOT_VERSION,  # noqa: F401
                                       build_serve_snapshot, build_snapshot,
                                       traffic_maps)
-from repro_torch.obs.tracer import (CAT_HINT, CAT_IO_CHUNK,  # noqa: F401
-                                    CAT_IO_QUEUE, CAT_IO_REQ,
-                                    CAT_IO_REQ_QUEUE, CAT_PLAN, Tracer)
+from repro_torch.obs.tracer import (CAT_COPY, CAT_HINT,  # noqa: F401
+                                    CAT_IO_CHUNK, CAT_IO_QUEUE, CAT_IO_REQ,
+                                    CAT_IO_REQ_QUEUE, CAT_OPT, CAT_PLAN,
+                                    CAT_SYNC, HOST_TRACK, Tracer)

@@ -51,6 +51,9 @@ def build_snapshot(eng) -> Dict[str, object]:
     * time — ``op_seconds``, ``stall_s``, ``phase_time``
     * lookahead — ``lookahead``, ``hint_skips`` / ``act_skips`` /
       ``act_fallbacks``
+    * host — ``counters``: ``host_syncs`` (the executor's ``float(loss)``
+      and ``BARRIER`` syncs) and, per rank, the host Adam's ``calls``,
+      ``params`` and ``busy_s``
     * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
     * spans — ``trace`` (``Tracer.summary()``)
     * ``autotune`` — the decision log of an attached
@@ -80,6 +83,11 @@ def build_snapshot(eng) -> Dict[str, object]:
         "hint_skips": int(eng.hint_skips),
         "act_skips": int(eng.act_skips),
         "act_fallbacks": int(eng.act_fallbacks),
+        "counters": {
+            "host_syncs": int(eng.host_syncs),
+            "adam": [{"calls": rk.opt_c.adam_calls,
+                      "params": rk.opt_c.adam_params,
+                      "busy_s": rk.opt_c.adam_busy_s} for rk in rks]},
         "plan_costs": dataclasses.asdict(PlanCosts.from_engine(eng)),
         "trace": eng.tracer.summary(),
     }

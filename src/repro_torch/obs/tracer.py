@@ -17,12 +17,30 @@ event. Tracks map 1:1 onto Chrome trace ``tid``s: one per I/O channel
 thread (queue-wait + transfer slices), one for the plan executor, and
 one per hint stream.
 
+Stamps are ``time.perf_counter`` seconds (cheap). The tracer also keeps
+clock anchors — a ``perf_counter_ns`` / ``time.time_ns`` pair, the
+tightest bracket of a few reads — taken when recording starts
+(``enable()`` / ``clear()``) and when it stops (``disable()``).
+``to_unix_ns`` maps a stamp onto Unix nanoseconds by interpolating
+between the two, which is the clock of ``torch.profiler``'s events
+(``_KinetoEvent.start_ns()``), so host spans and device intervals of one
+window can be compared directly; ``summary()["clock"]`` reports the
+drift between the anchors.
+
 ``export_chrome(path)`` writes the Chrome trace-event JSON format
 (``{"traceEvents": [...]}`` with ``ph="X"`` complete events, ``ph="i"``
 instants and ``ph="M"`` thread-name metadata) — loadable directly in
-Perfetto / ``chrome://tracing``. ``summary()`` reduces the ring to the
-per-route byte/seconds aggregates that ``metrics_snapshot()`` embeds
-and ``obs.reconcile`` / ``perfmodel.machine_from_snapshot`` consume.
+Perfetto / ``chrome://tracing`` — on the time base that
+``torch.profiler``'s ``export_chrome_trace`` writes (microseconds since
+``baseTimeNanoseconds``), so the two files of one window line up when
+opened together. ``summary()`` reduces the ring to the per-route
+byte/seconds aggregates that ``metrics_snapshot()`` embeds and
+``obs.reconcile`` / ``perfmodel.machine_from_snapshot`` consume.
+
+Tracks: each I/O worker records on its own thread's name; every other
+thread (the plan executor's) records its host work on ``HOST_TRACK``,
+apart from the executor's one span per plan op on ``exec``
+(:func:`thread_track`).
 """
 from __future__ import annotations
 
@@ -42,7 +60,68 @@ CAT_IO_REQ = "io.req"          # request-body execution (front pool)
 CAT_IO_REQ_QUEUE = "io.req.queue"
 CAT_PLAN = "plan"              # one span per executed plan op
 CAT_HINT = "hint"              # hint lifecycle (issued -> outcome)
-CAT_FAULT = "io.fault"         # instants: retries, failovers, CRC errors
+CAT_COPY = "copy"              # card <-> host copies and their host staging
+CAT_SYNC = "sync"              # the host waiting for the card
+CAT_OPT = "opt"                # host Adam updates and waits on them
+
+#: the track of the host work a non-worker thread (the plan executor)
+#: does inside its plan ops: copies, host staging, syncs, optimizer waits
+HOST_TRACK = "exec.host"
+
+#: libkineto's ``ChromeTraceBaseTime`` interval: ``torch.profiler``'s
+#: Chrome export writes microseconds since the start of the current one
+_KINETO_BASE_SECONDS = 7889238
+
+_tls = threading.local()
+_last: Optional["Tracer"] = None
+
+
+def set_thread_track(name: str):
+    """Name the calling thread's track (the I/O engine's workers)."""
+    _tls.track = name
+
+
+def thread_track() -> str:
+    """The calling thread's track: an I/O worker's own name, else
+    :data:`HOST_TRACK`."""
+    return getattr(_tls, "track", HOST_TRACK)
+
+
+def set_current_req(seq: int):
+    """The sequence number of the request the calling worker runs."""
+    _tls.req = seq
+
+
+def current_req() -> int:
+    """The request the calling thread is running (-1: none)."""
+    return getattr(_tls, "req", -1)
+
+
+def last() -> Optional["Tracer"]:
+    """The tracer most recently enabled in this process (None before any):
+    a tool that traced a window of an engine it does not hold reads the
+    window here after the engine is gone."""
+    return _last
+
+
+def kineto_base_ns() -> int:
+    """The ``baseTimeNanoseconds`` ``torch.profiler``'s Chrome export
+    uses now."""
+    t = int(time.time())
+    return t // _KINETO_BASE_SECONDS * _KINETO_BASE_SECONDS * 1_000_000_000
+
+
+def _anchor() -> Tuple[int, int]:
+    """A ``(perf_counter_ns, time_ns)`` pair: of five brackets
+    ``perf, wall, perf`` the tightest, its midpoint against its wall."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        w = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, w)
+    return best[1], best[2]
 
 
 def _union_seconds(intervals: List[Tuple[float, float]]) -> float:
@@ -78,21 +157,56 @@ class Tracer:
         self._lock = threading.Lock()
         self._spans: deque = deque(maxlen=self._capacity)
         self._dropped = 0
-        # all exported timestamps are relative to this epoch
-        self._epoch = time.perf_counter()
+        #: the executor's current step, for spans whose site has none
+        self.step = 0
+        self._anchors: List[Tuple[int, int]] = [_anchor()]
 
     # ---------------- control ----------------
     def enable(self):
+        global _last
+        self._anchors = [_anchor()]
         self.enabled = True
+        _last = self
 
     def disable(self):
+        if self.enabled:
+            self._anchors = self._anchors[:1] + [_anchor()]
         self.enabled = False
 
     def clear(self):
         with self._lock:
             self._spans.clear()
             self._dropped = 0
-            self._epoch = time.perf_counter()
+            self._anchors = [_anchor()]
+
+    # ---------------- clock ----------------
+    def _mapping(self) -> Tuple[int, int, float]:
+        """``(p0, w0, rate)``: the start anchor and the wall clock's rate
+        against ``perf_counter`` up to the stop anchor (while recording,
+        up to now)."""
+        anchors = self._anchors
+        (p0, w0), (p1, w1) = anchors[0], (
+            anchors[-1] if len(anchors) > 1 else _anchor())
+        return p0, w0, (w1 - w0) / (p1 - p0) if p1 > p0 else 1.0
+
+    def to_unix_ns(self, t: float) -> int:
+        """A ``perf_counter`` stamp in Unix ns (``torch.profiler``'s event
+        clock), interpolated between the start and stop anchors."""
+        p0, w0, rate = self._mapping()
+        return int(w0 + (t * 1e9 - p0) * rate)
+
+    def clock(self) -> dict:
+        """The anchors and the wall clock's drift against ``perf_counter``
+        between them (ns over the interval, and parts per million)."""
+        anchors = list(self._anchors)
+        out = {"anchors": [list(a) for a in anchors], "drift_ns": None,
+               "drift_ppm": None}
+        if len(anchors) > 1:
+            (p0, w0), (p1, w1) = anchors[0], anchors[-1]
+            drift = (w1 - w0) - (p1 - p0)
+            out["drift_ns"] = drift
+            out["drift_ppm"] = 1e6 * drift / (p1 - p0) if p1 > p0 else None
+        return out
 
     @property
     def dropped(self) -> int:
@@ -186,13 +300,23 @@ class Tracer:
                 pp["rate_bps"] = (pp["bytes"] / pp["busy_s"]
                                   if pp["busy_s"] > 0 else 0.0)
         return {"enabled": self.enabled, "spans": n_spans,
-                "dropped": self.dropped, "routes": routes}
+                "dropped": self.dropped, "routes": routes,
+                "clock": self.clock()}
 
     # ---------------- export ----------------
     def export_chrome(self, path: str) -> str:
         """Write the ring as Chrome trace-event JSON and return ``path``.
         One ``tid`` (track) per channel thread / executor / hint stream,
-        named via ``ph="M"`` thread_name metadata."""
+        named via ``ph="M"`` thread_name metadata. Timestamps are
+        microseconds since the ``baseTimeNanoseconds`` that
+        ``torch.profiler``'s ``export_chrome_trace`` uses, written too,
+        so a profiler trace of the same window lines up with this one in
+        Perfetto."""
+        base = kineto_base_ns()
+        p0, w0, rate = self._mapping()
+
+        def us(t: float) -> float:
+            return (w0 - base + (t * 1e9 - p0) * rate) / 1e3
         tids: Dict[str, int] = {}
         events: List[dict] = []
 
@@ -207,17 +331,18 @@ class Tracer:
 
         for track, name, cat, t0, t1, args in self.spans():
             ev = {"pid": 1, "tid": tid_of(track), "name": name, "cat": cat,
-                  "ts": (t0 - self._epoch) * 1e6}
+                  "ts": us(t0)}
             if t1 is None:
                 ev["ph"] = "i"
                 ev["s"] = "t"                    # thread-scoped instant
             else:
                 ev["ph"] = "X"
-                ev["dur"] = max(0.0, (t1 - t0) * 1e6)
+                ev["dur"] = max(0.0, us(t1) - us(t0))
             if args:
                 ev["args"] = args
             events.append(ev)
         doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": base,
                "otherData": {"dropped": self.dropped,
                              "capacity": self._capacity}}
         with open(path, "w") as f:

@@ -37,7 +37,15 @@
 
 Each counts lookahead hits/misses (``la_hits`` / ``la_misses``) and, when
 the engine attaches its ``repro_torch.obs.Tracer`` (the ``tracer``
-attribute), records one lifecycle span per hinted prefetch.
+attribute), records one lifecycle span per hinted prefetch. While that
+tracer records, each copy between the card and host memory is one
+``copy.d2h`` / ``copy.h2d`` span (category ``copy``, with the metered
+bytes and category), the checkpoint tier's host-side assembly one
+``host.stage`` span, each host Adam update one ``adam.update`` span and
+each wait on an optimizer request one ``opt.wait`` span naming the
+request (``req``), all on the calling thread's track
+(``obs.tracer.thread_track``). The optimizer coordinator also counts its
+Adam calls, elements and busy seconds whether or not the tracer records.
 
 Device tensors cross to the host only on the caller's (executor's)
 thread, before any ``engine.submit``: no engine worker touches CUDA.
@@ -45,6 +53,7 @@ thread, before any ``engine.submit``: no engine worker touches CUDA.
 from __future__ import annotations
 
 import math
+import threading
 import time
 from concurrent.futures import CancelledError
 from typing import Callable, Dict, List, Optional, Tuple
@@ -54,7 +63,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.io import IOEngine, IOPriority, IORequest
-from repro_torch.obs.tracer import CAT_HINT
+from repro_torch.obs.tracer import (CAT_COPY, CAT_HINT, CAT_OPT, CAT_SYNC,
+                                    current_req, thread_track)
 from repro_torch.offload.stores import (HostStore, SSDStore, TieredVector,
                                         TrafficMeter, host_cast, to_device,
                                         to_host)
@@ -84,10 +94,48 @@ def _hint_settle(coord, stream: str, key, outcome: str):
               t0, time.perf_counter(), l=int(l), m=int(m), outcome=outcome)
 
 
+def _stamp(tr) -> Optional[float]:
+    """A span's start stamp while ``tr`` records, else None (one flag
+    test)."""
+    return time.perf_counter() if tr is not None and tr.enabled else None
+
+
+def _copy_stamp(tr, device, l: int = -1, m: int = -1) -> Optional[float]:
+    """A copy's start stamp while ``tr`` records, else None (one flag
+    test). A copy between the card and pageable host memory first waits
+    for the work queued on the stream before it, which is not the copy's
+    own time: on the card the stream drains first, inside a ``copy.wait``
+    span (category ``sync``), and the stamp is taken after it."""
+    if tr is None or not tr.enabled:
+        return None
+    if torch.device(device).type == "cuda":
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(device).synchronize()
+        tr.record(thread_track(), "copy.wait", CAT_SYNC, t0,
+                  time.perf_counter(), step=tr.step, l=int(l), m=int(m))
+    return time.perf_counter()
+
+
+def _copy_span(tr, t0: float, name: str, nbytes: int, l: int = -1,
+               m: int = -1, **args):
+    """Close a span of category ``copy`` opened at ``t0``: a copy between
+    card and host memory (``copy.d2h`` / ``copy.h2d``) or its host-side
+    staging (``host.stage``)."""
+    tr.record(thread_track(), name, CAT_COPY, t0, time.perf_counter(),
+              nbytes=int(nbytes), step=tr.step, l=int(l), m=int(m), **args)
+
+
 def _xfer(meter: TrafficMeter, engine: IOEngine, category: str, route: str,
-          nbytes: int):
+          nbytes: int, tr=None, t0: Optional[float] = None, l: int = -1,
+          m: int = -1):
     """Meter + (optionally) pace one device-side copy — the single place
-    the meter.add/throttle pair lives for non-chunked transfers."""
+    the meter.add/throttle pair lives for non-chunked transfers. Called
+    right after the copy; ``t0`` (a :func:`_stamp` taken before it) also
+    closes the copy's span with the metered bytes."""
+    if t0 is not None:
+        # pageable host memory on every copy (no pinned pool yet)
+        _copy_span(tr, t0, "copy.d2h" if route == "gpu->cpu" else
+                   "copy.h2d", nbytes, l, m, category=category, pinned=False)
     meter.add(category, route, nbytes)
     engine.throttle(route, nbytes)
 
@@ -209,8 +257,10 @@ class ParameterCoordinator:
             self.la_misses += 1
             _hint_settle(self, "param", l, "late")
         host_arr = self._futures.pop(l).result()
+        t0 = _copy_stamp(self.tracer, self.device, l)
         dev = to_device(host_arr, self.dtype, host_arr.shape, self.device)
-        _xfer(self.meter, self.engine, "param", "cpu->gpu", host_arr.nbytes)
+        _xfer(self.meter, self.engine, "param", "cpu->gpu", host_arr.nbytes,
+              self.tracer, t0, l)
         return dev
 
     def reset(self):
@@ -273,14 +323,21 @@ class InterLayerTensorCoordinator:
         """Offload layer-l input checkpoint for micro-batch m."""
         if keep_on_device:
             self._device_kept[(l, m)] = y_dev
+        tr = self.tracer
+        t0 = _copy_stamp(tr, y_dev.device, l, m)
         arr = to_host(y_dev).reshape(-1)
-        _xfer(self.meter, self.engine, "ckpt", "gpu->cpu", arr.nbytes)
+        _xfer(self.meter, self.engine, "ckpt", "gpu->cpu", arr.nbytes, tr, t0,
+              l, m)
         self._shapes[("c", l, m)] = (tuple(y_dev.shape), y_dev.dtype)
         k = int(round(self.x * arr.size))
         name = self._key("c", l, m)
+        t0 = _stamp(tr)
         self.host.put(name + ":h", arr[:k].copy())
         # the tail stays cached on the host until the forward consumes it
         self.host.put(name + ":tail", arr[k:].copy())
+        if t0 is not None:
+            _copy_span(tr, t0, "host.stage", arr.nbytes, l, m,
+                       what="put_ckpt")
         if k < arr.size:
             old = self._pending.pop(("c", l, m), None)
             if old is not None:
@@ -303,9 +360,17 @@ class InterLayerTensorCoordinator:
         name = self._key("c", l, m)
         head = self.host.get(name + ":h")
         tail = self.host.pop(name + ":tail")   # consume host cache
+        tr = self.tracer
+        t0 = _stamp(tr)
         arr = np.concatenate([head, tail])
-        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes)
-        return self._dev(arr, ("c", l, m))
+        if t0 is not None:
+            _copy_span(tr, t0, "host.stage", arr.nbytes, l, m,
+                       what="get_ckpt_fwd")
+        t0 = _copy_stamp(tr, self.device, l, m)
+        dev = self._dev(arr, ("c", l, m))
+        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes, tr, t0,
+              l, m)
+        return dev
 
     def prefetch_bwd(self, l: int, m: int):
         """``PREFETCH_CKPT`` hint: start the backward tail's SSD re-read
@@ -357,14 +422,21 @@ class InterLayerTensorCoordinator:
             else:
                 self.la_misses += 1
                 tail = self.ssd.read(name + ":s", "ckpt")
+            t0 = _stamp(self.tracer)
             arr = np.concatenate([head, tail])
+            if t0 is not None:
+                _copy_span(self.tracer, t0, "host.stage", arr.nbytes, l, m,
+                           what="get_ckpt_bwd")
         else:
             arr = head
         if pre is not None:          # prefetched but unused (host-cached)
             _hint_settle(self, "ckpt", (l, m), "unused")
             _cancel_or_drain(pre)
-        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes)
-        return self._dev(arr, ("c", l, m))
+        t0 = _copy_stamp(self.tracer, self.device, l, m)
+        dev = self._dev(arr, ("c", l, m))
+        _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes,
+              self.tracer, t0, l, m)
+        return dev
 
     def wait_pending(self):
         """Drain all outstanding checkpoint spills (engine teardown)."""
@@ -424,8 +496,10 @@ class InterLayerTensorCoordinator:
         self._spill_grad(l, m, dx_dev)
 
     def _spill_grad(self, l: int, m: int, dx_dev: torch.Tensor):
+        t0 = _copy_stamp(self.tracer, dx_dev.device, l, m)
         arr = to_host(dx_dev)
-        _xfer(self.meter, self.engine, "inter_grad", "gpu->cpu", arr.nbytes)
+        _xfer(self.meter, self.engine, "inter_grad", "gpu->cpu", arr.nbytes,
+              self.tracer, t0, l, m)
         self._shapes[("g", l, m)] = (tuple(dx_dev.shape), dx_dev.dtype)
         self.host.put(self._key("g", l, m), arr)
 
@@ -438,8 +512,11 @@ class InterLayerTensorCoordinator:
         for k in [k for k in self._device_kept if k[0] == -l - 1]:
             self._spill_grad(l, k[1], self._device_kept.pop(k))
         arr = self.host.pop(self._key("g", l, m))
-        _xfer(self.meter, self.engine, "inter_grad", "cpu->gpu", arr.nbytes)
-        return self._dev(arr, ("g", l, m))
+        t0 = _copy_stamp(self.tracer, self.device, l, m)
+        dev = self._dev(arr, ("g", l, m))
+        _xfer(self.meter, self.engine, "inter_grad", "cpu->gpu", arr.nbytes,
+              self.tracer, t0, l, m)
+        return dev
 
 
 class _LateTail:
@@ -494,6 +571,39 @@ class OptimizerStepCoordinator:
         self.la_misses = 0      # flush_late read the α-tail itself
         self.tracer = None      # engine-attached repro_torch.obs.Tracer
         self._hint_t: Dict[int, float] = {}
+        # host Adam calls, elements and busy seconds (always counted)
+        self._adam_lock = threading.Lock()
+        self.adam_calls = 0
+        self.adam_params = 0
+        self.adam_busy_s = 0.0
+
+    def reset_adam_stats(self):
+        with self._adam_lock:
+            self.adam_calls = self.adam_params = 0
+            self.adam_busy_s = 0.0
+
+    def _update(self, seg: str, l: int, step: int, n: int, *args):
+        """One host Adam update of ``n`` elements, ``self.adam.update(*args)``,
+        counted, and spanned on the calling worker's track while tracing."""
+        t0 = time.perf_counter()
+        self.adam.update(*args)
+        t1 = time.perf_counter()
+        with self._adam_lock:
+            self.adam_calls += 1
+            self.adam_params += n
+            self.adam_busy_s += t1 - t0
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.record(thread_track(), "adam.update", CAT_OPT, t0, t1,
+                      seg=seg, params=int(n), l=l, step=step,
+                      req=current_req())
+
+    def _wait_span(self, t0: float, kind: str, req: IORequest, l: int,
+                   step: int):
+        """Close an ``opt.wait`` span on ``req``, opened at ``t0``."""
+        self.tracer.record(thread_track(), "opt.wait", CAT_OPT, t0,
+                           time.perf_counter(), kind=kind, req=req.seq, l=l,
+                           step=step)
 
     def _k_early(self, l: int) -> int:
         return int(round((1.0 - self.alpha) * self.masters[l].n))
@@ -527,8 +637,10 @@ class OptimizerStepCoordinator:
         """After layer l's backward: copy the grads to the host (here, on
         the caller's thread), update the (1-α) fraction in an engine
         request, retain the α fraction's grads on the host."""
+        t0 = _copy_stamp(self.tracer, g_dev.device, l)
         g = g_dev.detach().float().cpu().numpy()
-        _xfer(self.meter, self.engine, "grad", "gpu->cpu", g.nbytes)
+        _xfer(self.meter, self.engine, "grad", "gpu->cpu", g.nbytes,
+              self.tracer, t0, l)
 
         def work():
             n = self.masters[l].n
@@ -537,7 +649,7 @@ class OptimizerStepCoordinator:
                 mast = self.masters[l].read_range(0, k)
                 m_ = self.ms[l].read_range(0, k)
                 v_ = self.vs[l].read_range(0, k)
-                self.adam.update(mast, m_, v_, g[:k], step)
+                self._update("early", l, step, k, mast, m_, v_, g[:k], step)
                 self.masters[l].write_seg(mast, 0)
                 self.ms[l].write_seg(m_, 0)
                 self.vs[l].write_seg(v_, 0)
@@ -557,7 +669,10 @@ class OptimizerStepCoordinator:
         are hint-invariant either way."""
         f = self._early_futs.pop(l, None)
         if f is not None:
+            t0 = _stamp(self.tracer)
             f.result()
+            if t0 is not None:
+                self._wait_span(t0, "early", f, l, step)
         pre = self._late_pre.pop(l, None)
         n = self.masters[l].n
         k = self._k_early(l)
@@ -609,7 +724,8 @@ class OptimizerStepCoordinator:
                 segs = (self.masters[l].read_range(k, n),
                         self.ms[l].read_range(k, n),
                         self.vs[l].read_range(k, n))
-            self.adam.update(*segs, tail.g, tail.step)
+            self._update("late", l, tail.step, n - k, *segs, tail.g,
+                         tail.step)
             tail.segs = segs
         mast, m_, v_ = tail.segs
         self.masters[l].write_seg(mast, k)
@@ -625,12 +741,16 @@ class OptimizerStepCoordinator:
         if f is None:
             return
         tail = self._late_tails.pop(l, None)
+        t0 = _stamp(self.tracer)
         try:
             f.result()
         except Exception:
             if tail is None:
                 raise
             self._run_tail(l, tail)
+        if t0 is not None:
+            self._wait_span(t0, "late", f, l,
+                            tail.step if tail is not None else self.tracer.step)
 
     def late_settled(self, l: int) -> bool:
         """Is waiting on layer l's late flush bounded right now — no flush
@@ -644,8 +764,11 @@ class OptimizerStepCoordinator:
             _hint_settle(self, "opt", l, "cancelled")
             _cancel_or_drain(f)     # an orphaned hint's error is moot
         self._late_pre.clear()
-        for f in list(self._early_futs.values()):
+        for l, f in list(self._early_futs.items()):
+            t0 = _stamp(self.tracer)
             f.result()
+            if t0 is not None:
+                self._wait_span(t0, "all", f, l, self.tracer.step)
         self._early_futs.clear()
         for l in list(self._late_futs):
             self.wait_late(l)
@@ -795,6 +918,7 @@ class ActivationCoordinator:
         if self.nbytes is not None and n != self.nbytes:
             raise RuntimeError(f"act payload of layer {l} micro-batch {m} "
                                f"is {n} bytes, the plan's {self.nbytes}")
+        t0 = _copy_stamp(self.tracer, self.device, l, m)
         buf = np.empty(n, np.uint8)
         off = 0
         for t in tensors:
@@ -805,7 +929,8 @@ class ActivationCoordinator:
             off += nb
         del tensors
         res.release()
-        _xfer(self.meter, self.engine, "act", "gpu->cpu", n)
+        _xfer(self.meter, self.engine, "act", "gpu->cpu", n, self.tracer, t0,
+              l, m)
         key = (l, m)
         k = int(round(self.x * n))
         self._res[key] = res
@@ -880,7 +1005,7 @@ class ActivationCoordinator:
             buf = np.concatenate([head, tail])
         else:
             buf = tail
-        _xfer(self.meter, self.engine, "act", "cpu->gpu", buf.nbytes)
+        t0 = _copy_stamp(self.tracer, self.device, l, m)
         tensors, off = [], 0
         for dt, shp, st in self._meta[key]:
             t = torch.empty(shp, dtype=dt, device=self.device)
@@ -893,6 +1018,8 @@ class ActivationCoordinator:
                                         device=self.device).copy_(t)
             tensors.append(t)
             off += nb
+        _xfer(self.meter, self.engine, "act", "cpu->gpu", buf.nbytes,
+              self.tracer, t0, l, m)
         res = self._res[key]
         res.restore(tensors)
         self._forget(key)

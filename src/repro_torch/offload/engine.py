@@ -366,16 +366,19 @@ def lookahead_stats(eng, coordinators) -> Dict[str, object]:
 
 def reset_lookahead_stats(eng, coordinators) -> None:
     """Zero every measured-iteration meter — stall and phase timers,
-    adaptive-skip and fallback counters, lookahead hit/miss counts — so a
-    second measured iteration after a reset reports like the first
-    (traffic meters have their own ``reset``; the I/O engines' stats are
-    lifetime counters)."""
+    adaptive-skip, fallback and host-sync counters, lookahead hit/miss
+    counts, the host Adam's counters — so a second measured iteration
+    after a reset reports like the first (traffic meters have their own
+    ``reset``; the I/O engines' stats are lifetime counters)."""
     eng.op_seconds.clear()
     eng.hint_skips = eng.act_skips = eng.act_fallbacks = 0
+    eng.host_syncs = 0
     for k in eng.phase_time:
         eng.phase_time[k] = 0.0
     for c in coordinators:
         c.la_hits = c.la_misses = 0
+        if isinstance(c, OptimizerStepCoordinator):
+            c.reset_adam_stats()
 
 
 def build_training_state(eng, seed, params, stacks_for) -> None:
@@ -486,6 +489,7 @@ def build_training_state(eng, seed, params, stacks_for) -> None:
     eng.op_seconds = defaultdict(float)
     eng.hint_skips = 0          # hints skipped under backpressure
     eng.act_skips = 0           # "auto" spills skipped per (l, m)
+    eng.host_syncs = 0          # float(loss) and BARRIER host syncs
     eng.backpressure = ocfg.backpressure
     eng.act_adaptive = (ocfg.activation_policy == "auto"
                         and eng.act_policy == "spill")

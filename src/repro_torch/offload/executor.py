@@ -34,7 +34,12 @@ engine's live queue says the SSD is saturated (``eng.hint_skips``).
 Stall metering: every op's wall-clock accumulates into
 ``eng.op_seconds[op.name]``; :func:`stall_seconds` sums the kinds the
 device blocks on. With the engine's tracer enabled each op is also one
-span on the executor's track. ``BARRIER`` synchronises the card.
+span on the executor's track (``exec``), and the host work inside the
+ops goes on ``exec.host``: the token and label copies, the f32 gradient
+buffer's copies (``GRAD_SPILL`` / ``GRAD_FETCH_ACC``) and the
+coordinators' copies (category ``copy``), and each host sync (``sync``).
+``BARRIER`` synchronises the card; it and each ``float(loss)`` count in
+``eng.host_syncs`` whether or not the tracer records.
 
 Activation stream: under ``act_spill`` plans ``FWD`` keeps the layer's
 autograd residuals, ``SPILL_ACT`` streams them out (or, with
@@ -66,8 +71,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import Op, Plan
-from repro_torch.obs.tracer import CAT_HINT, CAT_PLAN
-from repro_torch.offload.coordinators import _xfer
+from repro_torch.obs.tracer import CAT_HINT, CAT_PLAN, CAT_SYNC, HOST_TRACK
+from repro_torch.offload.coordinators import (_copy_span, _copy_stamp,
+                                              _stamp, _xfer)
 
 #: the executor's Chrome-trace track name (one executor thread drives
 #: all ranks; per-op rank identity rides in the span args)
@@ -120,6 +126,7 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
     act_adaptive = eng.act_adaptive
     op_seconds = eng.op_seconds
     tracer = eng.tracer
+    tracer.step = step
     rec = tracer.enabled
     wave = -1                       # becomes 0 at the first PHASE("fwd")
     ranks = _ranks(eng)
@@ -139,7 +146,28 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
         skip_evt("hint", op)
 
     def tok(m: int) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(mbs[m])).long().to(dev)
+        ts = _copy_stamp(tracer, dev, m=m)
+        t = torch.from_numpy(np.ascontiguousarray(mbs[m])).long().to(dev)
+        if ts is not None:
+            _copy_span(tracer, ts, "copy.h2d", t.numel() * t.element_size(),
+                       m=m, category="tokens", pinned=False)
+        return t
+
+    def sync_device():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def host_sync(what: str, l: int, m: int, wait):
+        """``wait()``, in which the host waits for the card: counted, and
+        a ``sync`` span while tracing."""
+        eng.host_syncs += 1
+        ts = _stamp(tracer)
+        out = wait()
+        if ts is not None:
+            tracer.record(HOST_TRACK, "sync", CAT_SYNC, ts,
+                          time.perf_counter(), what=what, step=step, l=l,
+                          m=m)
+        return out
 
     regs = {}                       # transient device tensors
     p_dev = None                    # current layer's params
@@ -274,12 +302,19 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
             elif k is Op.EMBED_FWD:
                 regs[("y", op.m)] = eng.j_embed(eng.embed, tok(op.m))
             elif k is Op.HEAD_BWD:
+                ts = _copy_stamp(tracer, dev, m=op.m)
                 lab, w = eng._labels(mbs[op.m])
+                if ts is not None:
+                    _copy_span(tracer, ts, "copy.h2d",
+                               lab.numel() * lab.element_size()
+                               + w.numel() * w.element_size(), m=op.m,
+                               category="labels", pinned=False)
                 loss, du, dn, dx = eng.j_head_bwd(
                     eng.unembed, eng.final_norm, regs.pop(("x", op.m)),
                     lab, w, denom)
                 if op.acc:
-                    loss_total += float(loss)
+                    loss_total += host_sync("loss", op.l, op.m,
+                                            lambda: float(loss))
                     d_un = d_un + du
                     d_nm = d_nm + dn
                 else:
@@ -298,15 +333,21 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                 gacc = torch.zeros((eng.P,), dtype=torch.float32, device=dev)
             elif k is Op.GRAD_SPILL:
                 rk = ranks[0]
+                ts = _copy_stamp(tracer, dev, op.l)
                 g = gacc.cpu().numpy()
-                _xfer(rk.meter, rk.ioe, "grad", "gpu->cpu", g.nbytes)
+                _xfer(rk.meter, rk.ioe, "grad", "gpu->cpu", g.nbytes, tracer,
+                      ts, op.l)
                 rk.host.put(f"gacc:{op.l}", g)
                 gacc = None
             elif k is Op.GRAD_FETCH_ACC:
                 rk = ranks[0]
                 g_host = rk.host.pop(f"gacc:{op.l}")
-                _xfer(rk.meter, rk.ioe, "grad", "cpu->gpu", g_host.nbytes)
-                gacc = gacc + torch.from_numpy(g_host).to(dev)
+                ts = _copy_stamp(tracer, dev, op.l)
+                g_dev = torch.from_numpy(g_host).to(dev)
+                _xfer(rk.meter, rk.ioe, "grad", "cpu->gpu", g_host.nbytes,
+                      tracer, ts, op.l)
+                gacc = gacc + g_dev
+                del g_dev
             elif k is Op.WRITEBACK_GRAD:
                 ranks[0].opt_c.submit_early(op.l, gacc, step)
                 gacc = None
@@ -337,7 +378,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
             elif k is Op.FOLD_HEAD:
                 for m in op.ms:
                     loss, du, dn = head_stash.pop(m)
-                    loss_total += float(loss)
+                    loss_total += host_sync("loss", op.l, m,
+                                            lambda: float(loss))
                     d_un = d_un + du
                     d_nm = d_nm + dn
                     del du, dn
@@ -359,8 +401,7 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                 for rk in ranks:
                     rk.opt_c.wait_all()
             elif k is Op.BARRIER:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                host_sync("barrier", op.l, op.m, sync_device)
             elif k is Op.PHASE:
                 if op.tag == "fwd":
                     wave += 1

@@ -155,6 +155,8 @@ def _spans(tr):
 
 def test_tracer_summary_route_rates_match_reference():
     t, j = _spans(Tracer()), _spans(JaxTracer())
+    # the port's summary adds its clock anchors (the reference has none)
+    assert set(t.pop("clock")) == {"anchors", "drift_ns", "drift_ppm"}
     assert t == j
     assert t["routes"]["ssd->cpu"]["busy_wall_s"] == pytest.approx(2.5)
     assert t["routes"]["ssd->cpu"]["rate_bps"] == pytest.approx(160.0)
