@@ -671,7 +671,8 @@ def _seg_ssd(n: int, x_host: float, lo: int, hi: int) -> int:
 
 def plan_traffic(plan: Plan, costs: PlanCosts):
     """Predicted per-iteration ``(category, route) -> bytes`` counters,
-    computed directly from the IR by abstract interpretation.
+    computed directly from the IR by abstract interpretation
+    (:func:`_interpret`).
 
     The analyzer tracks exactly the state the coordinators do —
     device-kept checkpoint/gradient slots and CPU-cached checkpoint
@@ -686,6 +687,27 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
 
     Returns one dict for single-rank plans, a per-rank list for DP.
     """
+    dicts = _interpret(plan, costs)[0]
+    return dicts[0] if plan.spec.ranks == 1 else dicts
+
+
+def plan_host_payloads(plan: Plan, costs: PlanCosts) -> List[int]:
+    """Per rank, the most checkpoint and inter-layer gradient payloads
+    the host holds whole at once in one interpretation of ``plan``
+    (:func:`_interpret`): what the engine sizes its pinned pools by."""
+    return _interpret(plan, costs)[1]
+
+
+def _interpret(plan: Plan, costs: PlanCosts
+               ) -> Tuple[List[Dict[Tuple[str, str], int]], List[int]]:
+    """The abstract interpretation behind :func:`plan_traffic` and
+    :func:`plan_host_payloads`: per rank, the ``(category, route) ->
+    bytes`` counters and the peak count of payloads held whole on the
+    host. A checkpoint is held from its ``SPILL_CKPT`` to its
+    ``DROP_CKPT`` when its checkpoint ratio keeps all of it on the host
+    (a tail on the SSD leaves it pageable); an inter-layer gradient from
+    its unkept ``SPILL_GRAD``, or the eviction spill of a kept one, to
+    its ``FETCH_GRAD``."""
     R = plan.spec.ranks
     x = costs.ratios
     E = costs.ckpt_elems
@@ -716,6 +738,19 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
     kept: set = set()            # device-kept ckpt (l, m)
     kept_grad: set = set()       # device-kept inter-layer grad (l, m)
     tail_cached: set = set()     # ckpt tail still in CPU cache (l, m)
+    held: set = set()            # payloads held whole on host (kind, l, m)
+    live = [0] * R
+    peak = [0] * R
+
+    def hold(r: int, key):
+        held.add(key)
+        live[r] += 1
+        peak[r] = max(peak[r], live[r])
+
+    def free(r: int, key):
+        if key in held:
+            held.discard(key)
+            live[r] -= 1
 
     for op in plan.ops:
         k = op.op
@@ -743,6 +778,8 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
             tail_cached.add((op.l, op.m))
             if kc < E:
                 add(r, "ckpt", "cpu->ssd", (E - kc) * a)
+            else:
+                hold(r, ("c", op.l, op.m))
             if op.keep:
                 kept.add((op.l, op.m))
         elif k is Op.FETCH_CKPT:
@@ -786,6 +823,7 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
                 kept_grad.add((op.l, op.m))
             else:
                 add(owner(op.m), "inter_grad", "gpu->cpu", u)
+                hold(owner(op.m), ("g", op.l, op.m))
         elif k is Op.FETCH_GRAD:
             r = owner(op.m)
             if (op.l, op.m) in kept_grad:
@@ -797,10 +835,13 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
                             if key[0] == op.l and owner(key[1]) == r]:
                     kept_grad.discard(key)
                     add(r, "inter_grad", "gpu->cpu", u)
+                    hold(r, ("g",) + key)
                 add(r, "inter_grad", "cpu->gpu", u)
+                free(r, ("g", op.l, op.m))
         elif k is Op.DROP_CKPT:
             kept.discard((op.l, op.m))
             tail_cached.discard((op.l, op.m))
+            free(owner(op.m), ("c", op.l, op.m))
         elif k is Op.GRAD_SPILL:
             add(0, "grad", "gpu->cpu", P * 4)
         elif k is Op.GRAD_FETCH_ACC:
@@ -854,5 +895,4 @@ def plan_traffic(plan: Plan, costs: PlanCosts):
         # every other op moves no bytes (APPEND_KV is a device-HBM
         # block-table write — occupancy accounting, no offload traffic)
 
-    dicts = [dict(d) for d in out]
-    return dicts[0] if R == 1 else dicts
+    return [dict(d) for d in out], peak

@@ -38,6 +38,23 @@ def _jsonable(obj):
         return obj
 
 
+def _pool_counters(rks) -> Dict[str, int]:
+    """The checkpoint coordinators' pinned pools, summed over ranks:
+    ``pool_slots``, ``pool_pinned_bytes`` (what the pools hold),
+    ``pool_copies`` (copies through a slot) and ``pool_fallbacks``
+    (payloads that took the pageable path for want of a slot)."""
+    out = {"pool_slots": 0, "pool_pinned_bytes": 0, "pool_copies": 0,
+           "pool_fallbacks": 0}
+    for rk in rks:
+        c = rk.ckpt_c
+        if c.pool is not None:
+            out["pool_slots"] += c.pool.nslots
+            out["pool_pinned_bytes"] += c.pool.nbytes if c.pool.pinned else 0
+        out["pool_copies"] += c.pool_copies
+        out["pool_fallbacks"] += c.pool_fallbacks
+    return out
+
+
 def build_snapshot(eng) -> Dict[str, object]:
     """An offload engine's flat snapshot, in the reference's schema
     (per-rank lists; one entry for the single-rank engine):
@@ -52,7 +69,9 @@ def build_snapshot(eng) -> Dict[str, object]:
     * lookahead — ``lookahead``, ``hint_skips`` / ``act_skips`` /
       ``act_fallbacks``
     * host — ``counters``: ``host_syncs`` (the executor's ``float(loss)``
-      and ``BARRIER`` syncs) and, per rank, the host Adam's ``calls``,
+      and ``BARRIER`` syncs), the pinned pools' ``pool_slots``,
+      ``pool_pinned_bytes``, ``pool_copies`` and ``pool_fallbacks``
+      (:func:`_pool_counters`) and, per rank, the host Adam's ``calls``,
       ``params`` and ``busy_s``
     * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
     * spans — ``trace`` (``Tracer.summary()``)
@@ -85,6 +104,7 @@ def build_snapshot(eng) -> Dict[str, object]:
         "act_fallbacks": int(eng.act_fallbacks),
         "counters": {
             "host_syncs": int(eng.host_syncs),
+            **_pool_counters(rks),
             "adam": [{"calls": rk.opt_c.adam_calls,
                       "params": rk.opt_c.adam_params,
                       "busy_s": rk.opt_c.adam_busy_s} for rk in rks]},

@@ -14,7 +14,9 @@
   cache, after which the tail is dropped from host; the backward
   recompute re-reads the tail from SSD (asynchronously ahead of the
   consumer when a ``PREFETCH_CKPT`` hint fired). Inter-layer gradients
-  stay on the host (never SSD).
+  stay on the host (never SSD). On a card both go through reused pinned
+  host slots (:class:`repro_torch.offload.stores.PinnedPool`), copied on
+  side streams without blocking the caller.
 * OptimizerStepCoordinator — master/momentum/variance in tiered f32
   vectors and the host Adam (``CpuAdam``); the (1-α) fraction updates
   right after a layer's backward (an engine request, overlapped), the α
@@ -40,8 +42,9 @@ the engine attaches its ``repro_torch.obs.Tracer`` (the ``tracer``
 attribute), records one lifecycle span per hinted prefetch. While that
 tracer records, each copy between the card and host memory is one
 ``copy.d2h`` / ``copy.h2d`` span (category ``copy``, with the metered
-bytes and category), the checkpoint tier's host-side assembly one
-``host.stage`` span, each host Adam update one ``adam.update`` span and
+bytes and category, and ``pinned`` true for a copy through a pool
+slot), the checkpoint tier's host-side assembly one ``host.stage`` span,
+each host Adam update one ``adam.update`` span and
 each wait on an optimizer request one ``opt.wait`` span naming the
 request (``req``), all on the calling thread's track
 (``obs.tracer.thread_track``). The optimizer coordinator also counts its
@@ -65,8 +68,9 @@ from repro_torch import tree
 from repro_torch.io import IOEngine, IOPriority, IORequest
 from repro_torch.obs.tracer import (CAT_COPY, CAT_HINT, CAT_OPT, CAT_SYNC,
                                     current_req, thread_track)
-from repro_torch.offload.stores import (HostStore, SSDStore, TieredVector,
-                                        TrafficMeter, host_cast, to_device,
+from repro_torch.offload.stores import (HostStore, PinnedPool, PoolSlot,
+                                        SSDStore, TieredVector, TrafficMeter,
+                                        host_cast, host_dtype, to_device,
                                         to_host)
 from repro_torch.optim.cpu_adam import CpuAdam
 
@@ -127,15 +131,16 @@ def _copy_span(tr, t0: float, name: str, nbytes: int, l: int = -1,
 
 def _xfer(meter: TrafficMeter, engine: IOEngine, category: str, route: str,
           nbytes: int, tr=None, t0: Optional[float] = None, l: int = -1,
-          m: int = -1):
+          m: int = -1, pinned: bool = False):
     """Meter + (optionally) pace one device-side copy — the single place
     the meter.add/throttle pair lives for non-chunked transfers. Called
     right after the copy; ``t0`` (a :func:`_stamp` taken before it) also
-    closes the copy's span with the metered bytes."""
+    closes the copy's span with the metered bytes. ``pinned``: the copy
+    went through a :class:`PinnedPool` slot (the checkpoint coordinator's
+    pooled copies); every other copy uses pageable host memory."""
     if t0 is not None:
-        # pageable host memory on every copy (no pinned pool yet)
         _copy_span(tr, t0, "copy.d2h" if route == "gpu->cpu" else
-                   "copy.h2d", nbytes, l, m, category=category, pinned=False)
+                   "copy.h2d", nbytes, l, m, category=category, pinned=pinned)
     meter.add(category, route, nbytes)
     engine.throttle(route, nbytes)
 
@@ -291,7 +296,22 @@ class ParameterCoordinator:
 class InterLayerTensorCoordinator:
     """Checkpoints: (layer, mb) -> host head + SSD tail. ``x_cpu`` is the
     host-resident fraction of each checkpoint's elements; the tail
-    beyond k goes to SSD. Tensors come back on ``device``."""
+    beyond k goes to SSD. Tensors come back on ``device``.
+
+    With a :class:`PinnedPool` attached (:meth:`attach_pool`; the engine
+    attaches one when its device is a card) every payload the host holds
+    whole goes through a pool slot: each inter-layer gradient, and each
+    checkpoint when ``x_cpu`` keeps all of it on the host. Its copies
+    start on the coordinator's two copy streams and return at once, the
+    host head and (empty) tail are two views of the slot (no host
+    staging), and the slot goes back to the pool at ``drop_ckpt``, after
+    ``get_grad`` and on ``clear()``. A copy into a slot waits on the card
+    for the last copy out of it, so a slot is never overwritten before
+    its payload has left, and the host never reads a slot. A checkpoint
+    with an SSD tail stays pageable: its slot would pin the whole payload
+    until ``drop_ckpt``, where the plan holds only the head. A payload
+    that finds no free slot takes the pageable path too (counted in
+    ``pool_fallbacks``; ``pool_copies`` counts the pooled copies)."""
 
     def __init__(self, x_cpu: float, host: HostStore, ssd: SSDStore,
                  meter: TrafficMeter, engine: IOEngine, device="cpu"):
@@ -309,6 +329,23 @@ class InterLayerTensorCoordinator:
         self.la_misses = 0      # bwd tail came off the SSD synchronously
         self.tracer = None      # engine-attached repro_torch.obs.Tracer
         self._hint_t: Dict[Tuple[int, int], float] = {}
+        self.pool: Optional[PinnedPool] = None
+        self._slots: Dict[Tuple[str, int, int], PoolSlot] = {}
+        self._d2h = self._h2d = None     # the copy streams (card only)
+        self.pool_copies = 0             # copies through a pool slot
+        self.pool_fallbacks = 0          # payloads that found no slot
+
+    def attach_pool(self, pool: Optional[PinnedPool]):
+        """Copy every later payload through ``pool`` (None: the pageable
+        path). Only while no payload holds a slot (after ``clear()``)."""
+        if self._slots:
+            raise RuntimeError(f"{len(self._slots)} payloads still hold "
+                               "slots of the attached pool")
+        self.pool = pool
+        if pool is not None and self.device.type == "cuda" \
+                and self._d2h is None:
+            self._d2h = torch.cuda.Stream(self.device)
+            self._h2d = torch.cuda.Stream(self.device)
 
     def _key(self, kind: str, l: int, m: int) -> str:
         return f"{kind}:{l}:{m}"
@@ -317,6 +354,85 @@ class InterLayerTensorCoordinator:
         shape, dtype = self._shapes[key]
         return to_device(arr, dtype, shape, self.device)
 
+    # ---- pool slots ----
+    def _to_slot(self, key, t: torch.Tensor, category: str
+                 ) -> Optional[np.ndarray]:
+        """Start the device -> host copy of ``t`` into a free slot, held
+        under ``key``, without waiting for it. Returns the payload's host
+        view (for the host's accounting: it is read only by the card), or
+        None when there is no pool or no slot for it."""
+        pool = self.pool
+        if pool is None:
+            return None
+        nbytes = t.numel() * t.element_size()
+        slot = pool.acquire() if nbytes <= pool.size else None
+        if slot is None:
+            self.pool_fallbacks += 1
+            return None
+        self._slots[key] = slot
+        tr = self.tracer
+        t0 = _stamp(tr)
+        src = t.detach().reshape(-1)
+        dst = slot.t[:nbytes].view(t.dtype)
+        if self._d2h is None:
+            dst.copy_(src)
+        else:
+            s = self._d2h
+            # after the work that produced ``t`` and the last copy out of
+            # the slot; the allocator keeps ``t``'s storage until the copy
+            # has read it
+            s.wait_stream(torch.cuda.current_stream(t.device))
+            if slot.h2d is not None:
+                s.wait_event(slot.h2d)
+            with torch.cuda.stream(s):
+                dst.copy_(src, non_blocking=True)
+            src.record_stream(s)
+            if slot.d2h is None:
+                slot.d2h = torch.cuda.Event()
+            slot.d2h.record(s)
+        self.pool_copies += 1
+        _xfer(self.meter, self.engine, category, "gpu->cpu", nbytes, tr, t0,
+              key[1], key[2], pinned=True)
+        return slot.t[:nbytes].numpy().view(host_dtype(t.dtype))
+
+    def _from_slot(self, key, category: str) -> torch.Tensor:
+        """Start the host -> device copy of the payload in ``key``'s slot
+        without waiting for it; the current stream waits for it on the
+        card before its next op."""
+        slot = self._slots[key]
+        shape, dtype = self._shapes[key]
+        n = math.prod(shape)
+        nbytes = n * dtype.itemsize
+        tr = self.tracer
+        t0 = _stamp(tr)
+        src = slot.t[:nbytes].view(dtype)
+        if self._h2d is None:
+            dev = src.clone()           # its own storage: the slot is reused
+        else:
+            s = self._h2d
+            cur = torch.cuda.current_stream(self.device)
+            if slot.d2h is not None:
+                s.wait_event(slot.d2h)
+            with torch.cuda.stream(s):
+                dev = torch.empty(n, dtype=dtype, device=self.device)
+                dev.copy_(src, non_blocking=True)
+            if slot.h2d is None:
+                slot.h2d = torch.cuda.Event()
+            slot.h2d.record(s)
+            cur.wait_event(slot.h2d)
+            dev.record_stream(cur)
+        self.pool_copies += 1
+        _xfer(self.meter, self.engine, category, "cpu->gpu", nbytes, tr, t0,
+              key[1], key[2], pinned=True)
+        return dev.view(shape)
+
+    def _release(self, key):
+        """Give ``key``'s slot back to the pool (a no-op if it holds none);
+        the next copy into it waits on the card for this one's copies."""
+        slot = self._slots.pop(key, None)
+        if slot is not None:
+            self.pool.release(slot)
+
     # ---- forward checkpoints ----
     def put_ckpt(self, l: int, m: int, y_dev: torch.Tensor,
                  keep_on_device: bool = False):
@@ -324,20 +440,31 @@ class InterLayerTensorCoordinator:
         if keep_on_device:
             self._device_kept[(l, m)] = y_dev
         tr = self.tracer
-        t0 = _copy_stamp(tr, y_dev.device, l, m)
-        arr = to_host(y_dev).reshape(-1)
-        _xfer(self.meter, self.engine, "ckpt", "gpu->cpu", arr.nbytes, tr, t0,
-              l, m)
+        k = int(round(self.x * y_dev.numel()))
+        # only a payload the host keeps whole goes through a slot
+        arr = (self._to_slot(("c", l, m), y_dev, "ckpt")
+               if k == y_dev.numel() else None)
+        pooled = arr is not None
+        if not pooled:
+            t0 = _copy_stamp(tr, y_dev.device, l, m)
+            arr = to_host(y_dev).reshape(-1)
+            _xfer(self.meter, self.engine, "ckpt", "gpu->cpu", arr.nbytes,
+                  tr, t0, l, m)
         self._shapes[("c", l, m)] = (tuple(y_dev.shape), y_dev.dtype)
-        k = int(round(self.x * arr.size))
         name = self._key("c", l, m)
-        t0 = _stamp(tr)
-        self.host.put(name + ":h", arr[:k].copy())
-        # the tail stays cached on the host until the forward consumes it
-        self.host.put(name + ":tail", arr[k:].copy())
-        if t0 is not None:
-            _copy_span(tr, t0, "host.stage", arr.nbytes, l, m,
-                       what="put_ckpt")
+        if pooled:
+            # the whole payload is the head, in the slot: nothing to stage
+            self.host.put(name + ":h", arr[:k])
+            self.host.put(name + ":tail", arr[k:])
+        else:
+            t0 = _stamp(tr)
+            self.host.put(name + ":h", arr[:k].copy())
+            # the tail stays cached on the host until the forward
+            # consumes it
+            self.host.put(name + ":tail", arr[k:].copy())
+            if t0 is not None:
+                _copy_span(tr, t0, "host.stage", arr.nbytes, l, m,
+                           what="put_ckpt")
         if k < arr.size:
             old = self._pending.pop(("c", l, m), None)
             if old is not None:
@@ -360,6 +487,9 @@ class InterLayerTensorCoordinator:
         name = self._key("c", l, m)
         head = self.host.get(name + ":h")
         tail = self.host.pop(name + ":tail")   # consume host cache
+        if ("c", l, m) in self._slots:
+            # the whole payload is in the slot
+            return self._from_slot(("c", l, m), "ckpt")
         tr = self.tracer
         t0 = _stamp(tr)
         arr = np.concatenate([head, tail])
@@ -432,6 +562,8 @@ class InterLayerTensorCoordinator:
         if pre is not None:          # prefetched but unused (host-cached)
             _hint_settle(self, "ckpt", (l, m), "unused")
             _cancel_or_drain(pre)
+        if ("c", l, m) in self._slots:
+            return self._from_slot(("c", l, m), "ckpt")
         t0 = _copy_stamp(self.tracer, self.device, l, m)
         dev = self._dev(arr, ("c", l, m))
         _xfer(self.meter, self.engine, "ckpt", "cpu->gpu", arr.nbytes,
@@ -451,8 +583,8 @@ class InterLayerTensorCoordinator:
         """Abandon every checkpoint / inter-layer gradient this
         coordinator tracks: release device-kept tensors, cancel or drain
         in-flight spills (swallowing their errors — the caller is already
-        unwinding), and drop the host-resident pieces. The plan
-        executor's mid-step failure path."""
+        unwinding), and drop the host-resident pieces and their pool
+        slots. The plan executor's mid-step failure path."""
         self._device_kept.clear()
         for req in list(self._pending.values()):
             _cancel_or_drain(req)
@@ -469,6 +601,8 @@ class InterLayerTensorCoordinator:
                 if key in self.host:
                     self.host.pop(key)
         self._shapes.clear()
+        for key in list(self._slots):
+            self._release(key)
 
     def drop_ckpt(self, l: int, m: int):
         # A ckpt consumed only via get_ckpt_fwd (the head layer) still has
@@ -486,6 +620,7 @@ class InterLayerTensorCoordinator:
         for key in (name + ":h", name + ":tail"):
             if key in self.host:
                 self.host.pop(key)
+        self._release(("c", l, m))
 
     # ---- inter-layer gradients (backward; host only, §4.3) ----
     def put_grad(self, l: int, m: int, dx_dev: torch.Tensor,
@@ -496,10 +631,14 @@ class InterLayerTensorCoordinator:
         self._spill_grad(l, m, dx_dev)
 
     def _spill_grad(self, l: int, m: int, dx_dev: torch.Tensor):
-        t0 = _copy_stamp(self.tracer, dx_dev.device, l, m)
-        arr = to_host(dx_dev)
-        _xfer(self.meter, self.engine, "inter_grad", "gpu->cpu", arr.nbytes,
-              self.tracer, t0, l, m)
+        arr = self._to_slot(("g", l, m), dx_dev, "inter_grad")
+        if arr is not None:
+            arr = arr.reshape(dx_dev.shape)
+        else:
+            t0 = _copy_stamp(self.tracer, dx_dev.device, l, m)
+            arr = to_host(dx_dev)
+            _xfer(self.meter, self.engine, "inter_grad", "gpu->cpu",
+                  arr.nbytes, self.tracer, t0, l, m)
         self._shapes[("g", l, m)] = (tuple(dx_dev.shape), dx_dev.dtype)
         self.host.put(self._key("g", l, m), arr)
 
@@ -512,6 +651,10 @@ class InterLayerTensorCoordinator:
         for k in [k for k in self._device_kept if k[0] == -l - 1]:
             self._spill_grad(l, k[1], self._device_kept.pop(k))
         arr = self.host.pop(self._key("g", l, m))
+        if ("g", l, m) in self._slots:
+            dev = self._from_slot(("g", l, m), "inter_grad")
+            self._release(("g", l, m))
+            return dev
         t0 = _copy_stamp(self.tracer, self.device, l, m)
         dev = self._dev(arr, ("g", l, m))
         _xfer(self.meter, self.engine, "inter_grad", "cpu->gpu", arr.nbytes,

@@ -59,7 +59,7 @@ from repro_torch.offload.coordinators import (ActivationCoordinator,
                                               OptimizerStepCoordinator,
                                               ParameterCoordinator)
 from repro_torch.offload.engine import (OffloadConfig, build_training_state,
-                                        lookahead_stats,
+                                        free_pools, lookahead_stats,
                                         reset_lookahead_stats,
                                         shifted_labels, split_microbatches,
                                         swap_plan)
@@ -322,5 +322,9 @@ class DataParallelOffloadEngine:
         if self._closed:
             return
         self._closed = True
+        for rk in self.ranks:
+            rk.ckpt_c.wait_pending()
+            rk.ckpt_c.clear()
+        free_pools(self)
         for rk in self.ranks:
             rk.close()

@@ -52,8 +52,9 @@ import torch
 
 from repro_torch import resolve_device, tree
 from repro_torch.core.perfmodel import MachineParams, StorageRatios
-from repro_torch.core.plan import (PlanSpec, compile_wave, insert_prefetch,
-                                   mb_order)
+from repro_torch.core.plan import (PlanCosts, PlanSpec, compile_wave,
+                                   insert_prefetch, mb_order,
+                                   plan_host_payloads)
 from repro_torch.io import IOConfig, IOEngine
 from repro_torch.io.config import PATH_POLICIES
 from repro_torch.kernels.fused_adam import fused_adam
@@ -67,8 +68,9 @@ from repro_torch.offload.coordinators import (ActivationCoordinator,
                                               OptimizerStepCoordinator,
                                               ParameterCoordinator)
 from repro_torch.offload.executor import execute_plan, stall_seconds
-from repro_torch.offload.stores import (HostStore, SSDStore, TieredVector,
-                                        TrafficMeter, host_dtype, to_host)
+from repro_torch.offload.stores import (HostStore, PinnedPool, SSDStore,
+                                        TieredVector, TrafficMeter,
+                                        host_dtype, to_host)
 from repro_torch.optim.cpu_adam import CpuAdam
 
 __all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
@@ -76,7 +78,7 @@ __all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
            "shifted_labels", "engine_workload", "lookahead_stats",
            "reset_lookahead_stats", "offload_state", "act_residual_nbytes",
            "resolve_activation_policy", "build_training_state",
-           "swap_plan"]
+           "swap_plan", "size_pools", "free_pools"]
 
 
 @dataclasses.dataclass
@@ -367,7 +369,8 @@ def lookahead_stats(eng, coordinators) -> Dict[str, object]:
 def reset_lookahead_stats(eng, coordinators) -> None:
     """Zero every measured-iteration meter — stall and phase timers,
     adaptive-skip, fallback and host-sync counters, lookahead hit/miss
-    counts, the host Adam's counters — so a second measured iteration
+    counts, the host Adam's counters, the pinned pools' copy and
+    fallback counts (not their sizes) — so a second measured iteration
     after a reset reports like the first (traffic meters have their own
     ``reset``; the I/O engines' stats are lifetime counters)."""
     eng.op_seconds.clear()
@@ -379,6 +382,8 @@ def reset_lookahead_stats(eng, coordinators) -> None:
         c.la_hits = c.la_misses = 0
         if isinstance(c, OptimizerStepCoordinator):
             c.reset_adam_stats()
+        if isinstance(c, InterLayerTensorCoordinator):
+            c.pool_copies = c.pool_fallbacks = 0
 
 
 def build_training_state(eng, seed, params, stacks_for) -> None:
@@ -494,6 +499,62 @@ def build_training_state(eng, seed, params, stacks_for) -> None:
     eng.act_adaptive = (ocfg.activation_policy == "auto"
                         and eng.act_policy == "spill")
     eng._plan = eng._compile_plan()
+    size_pools(eng)
+
+
+def _host_available_bytes() -> Optional[int]:
+    """The host's ``MemAvailable`` (``/proc/meminfo``), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
+
+
+def free_pools(eng) -> None:
+    """Detach and free every rank stack's pinned pool (the engine's
+    close; a rebuild). The caller has cleared the payloads first."""
+    for st in getattr(eng, "ranks", [eng]):
+        st.ckpt_c.attach_pool(None)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)   # no copy still reads a slot
+        empty = getattr(torch._C, "_host_emptyCache", None)
+        if empty is not None:
+            empty()                  # hand the pinned blocks back
+
+
+def size_pools(eng) -> None:
+    """Give each rank stack's checkpoint coordinator a pinned host pool
+    for its checkpoint and inter-layer gradient payloads, when the
+    engine's device is a card: one slot a payload that the compiled plan
+    holds whole on the host at once (:func:`repro_torch.core.plan.
+    plan_host_payloads`), each one micro-batch's boundary tensor in the
+    engine's dtype. Called when the plan is compiled; a plan whose live
+    set or payload differs from the pools' rebuilds them, once no
+    payload is held. All pools together pin at most half of the host's
+    ``MemAvailable`` as it stands at the build; payloads beyond their
+    slots take the pageable path. On the CPU nothing is built."""
+    if eng.device.type != "cuda":
+        return
+    ocfg = eng.ocfg
+    size = (ocfg.micro_batch * ocfg.seq_len * eng.cfg.d_model
+            * eng.dtype.itemsize)
+    stacks = list(getattr(eng, "ranks", [eng]))
+    want = plan_host_payloads(eng._plan, PlanCosts.from_engine(eng))
+    if all(st.ckpt_c.pool is not None and st.ckpt_c.pool.size == size
+           and st.ckpt_c.pool.asked == n for st, n in zip(stacks, want)):
+        return
+    free_pools(eng)
+    avail = _host_available_bytes()
+    budget = avail // 2 if avail is not None else None
+    for st, n in zip(stacks, want):
+        pool = PinnedPool(n, size, pin=True, budget=budget)
+        st.ckpt_c.attach_pool(pool)
+        if budget is not None:
+            budget -= pool.nbytes
 
 
 def swap_plan(eng, changes, prefetch_depth=None, activation_policy=None,
@@ -531,6 +592,7 @@ def swap_plan(eng, changes, prefetch_depth=None, activation_policy=None,
         eng.act_adaptive = (eng.ocfg.activation_policy == "auto"
                             and eng.act_policy == "spill")
     eng._plan = eng._compile_plan()
+    size_pools(eng)
     return eng._plan
 
 
@@ -722,5 +784,7 @@ class OffloadEngine:
         self.ckpt_c.wait_pending()
         self.act_c.wait_pending()
         self.opt_c.wait_all()
+        self.ckpt_c.clear()
+        free_pools(self)
         self.ssd.close()              # removes stripe files from the paths
         self.ioe.shutdown(wait=True)

@@ -1,13 +1,15 @@
 """Three-tier tensor storage: device (torch) / host (numpy) / SSD (files).
 
 The device tier is the engine's torch device (a CUDA card, or the CPU
-in the tests); the host tier is numpy buffers and the SSD tier the
-filesystem. numpy has no bf16, so a bf16 tensor lives on the host as its
-``uint16`` bit patterns (:func:`host_dtype`, :func:`to_host`,
-:func:`to_device`): element counts, and so every tier split
-``k = round(x·n)`` and every byte meter, are the same as for a real
-2-byte type. All traffic is metered by category so the engine's counters
-can be validated against the closed-form model in repro_torch.core.traffic.
+in the tests); the host tier is numpy buffers (on a card, the
+checkpoint tier's are views of a :class:`PinnedPool`'s page-locked
+slots) and the SSD tier the filesystem. numpy has no bf16, so a bf16
+tensor lives on the host as its ``uint16`` bit patterns
+(:func:`host_dtype`, :func:`to_host`, :func:`to_device`): element
+counts, and so every tier split ``k = round(x·n)`` and every byte
+meter, are the same as for a real 2-byte type. All traffic is metered
+by category so the engine's counters can be validated against the
+closed-form model in repro_torch.core.traffic.
 
 All SSD bytes move through :class:`repro_torch.io.IOEngine`: chunked,
 priority-scheduled, striped across the engine's configured paths, and
@@ -17,7 +19,7 @@ top (shapes/dtypes, metering, async spills via the staging pool).
 from __future__ import annotations
 
 import threading
-from collections import defaultdict
+from collections import defaultdict, deque
 from concurrent.futures import CancelledError
 from typing import Dict, Optional, Tuple
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.io import (CATEGORY_PRIORITY, IOConfig, IOEngine, IOPriority,
                       IORequest, StripedFiles)
+from repro_torch.offload.buffers import pack
 
 
 def host_dtype(dtype: torch.dtype) -> np.dtype:
@@ -262,7 +265,9 @@ class SSDStore:
 
 
 class HostStore:
-    """Host ("pinned") buffers. Tracks resident bytes — the CPU-memory
+    """Named host numpy buffers: pageable arrays, or views of a
+    :class:`PinnedPool` slot for the checkpoints and inter-layer
+    gradients of an engine on a card. Tracks resident bytes — the CPU-memory
     budget the LP of Algorithm 1 constrains — and the peak residency
     (``peak_nbytes``), updated on every put, for validating the vertical
     schedule's footprint against the LP solution."""
@@ -298,6 +303,75 @@ class HostStore:
 
     def nbytes(self) -> int:
         return self._nbytes
+
+
+class PoolSlot:
+    """One slot of a :class:`PinnedPool`: ``t``, a ``uint8`` view of
+    ``size`` bytes inside one block; ``d2h`` / ``h2d``, the card events of
+    the last copy into and out of it (None until one ran, and on the
+    CPU)."""
+
+    __slots__ = ("t", "d2h", "h2d")
+
+    def __init__(self, t: torch.Tensor):
+        self.t, self.d2h, self.h2d = t, None, None
+
+
+def _max_slots(n: int, size: int, budget: int) -> int:
+    """The most slots, at most ``n``, whose ``pack`` fits ``budget``
+    bytes (``pack``'s total grows with the count)."""
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if pack(mid, size)[0] <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+class PinnedPool:
+    """Reused page-locked host slots for fixed-size payloads (GreedySnake
+    §5): slots of ``size`` bytes for ``n`` payloads, carved out of the
+    power-of-two blocks that :func:`repro_torch.offload.buffers.pack`
+    chooses, so no slot spans two blocks and the pinned allocator's
+    power-of-two padding wastes nothing beyond ``pack``'s. Allocated
+    once and reused; ``budget`` caps the pinned bytes (the pool then
+    holds the most slots whose ``pack`` fits it). ``pin=False`` makes the
+    same slots in pageable memory (tests on a host without a card).
+
+    A slot is taken with :meth:`acquire` (None when every slot is held)
+    and given back with :meth:`release`; the oldest released slot is
+    taken first, so the copy out of it has had the longest to finish."""
+
+    def __init__(self, n: int, size: int, pin: bool = True,
+                 budget: Optional[int] = None):
+        if size <= 0:
+            raise ValueError(f"slot size {size} must be positive")
+        self.asked = n
+        if budget is not None:
+            n = _max_slots(n, size, budget)
+        self.n = n
+        self.size = size
+        self.pinned = pin
+        total, blocks = pack(n, size) if n else (0, [])
+        self.nbytes = total
+        self.blocks = [torch.empty(b, dtype=torch.uint8, pin_memory=pin)
+                       for b in blocks]
+        self._free = deque(
+            PoolSlot(blk[i * size:(i + 1) * size])
+            for blk in self.blocks for i in range(blk.numel() // size))
+        self.nslots = len(self._free)
+
+    def acquire(self) -> Optional[PoolSlot]:
+        return self._free.popleft() if self._free else None
+
+    def release(self, slot: PoolSlot):
+        self._free.append(slot)
+
+    def free(self) -> int:
+        """Slots not held."""
+        return len(self._free)
 
 
 class TieredVector:

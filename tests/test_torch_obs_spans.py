@@ -13,9 +13,11 @@ every tier on the SSD:
 * no new span lands on the executor's ``exec`` track, whose plan-op spans
   stay disjoint;
 * with the tracer off a step records no span and the counters count;
-* on the card (``-m gpu``) each copy's span starts after a ``copy.wait``
-  span in which the stream drained, so it holds the copy and not the
-  work queued before it;
+* on the card (``-m gpu``) each pageable copy's span starts after a
+  ``copy.wait`` span in which the stream drained, so it holds the copy
+  and not the work queued before it; the checkpoints and inter-layer
+  gradients go through the pinned pool (``pinned`` true) and drain
+  nothing;
 * the clock mapping puts a ``torch.profiler`` range inside the tracer
   span that holds it, and ``export_chrome`` writes on the profiler's
   Chrome-trace base.
@@ -226,13 +228,19 @@ def test_copies_on_the_card_start_after_the_stream_drains():
             eng.close()
     waits = _named(spans, "copy.wait")
     copies = _named(spans, "copy.d2h", "copy.h2d")
-    assert copies and len(waits) == len(copies)
+    drains = [s for s in waits if s[5].get("what") != "pool"]
+    pooled = [s for s in copies if s[5]["pinned"]]
+    assert pooled and {s[5]["category"] for s in pooled} == {"ckpt",
+                                                             "inter_grad"}
+    assert not any(s[5]["category"] in ("ckpt", "inter_grad")
+                   for s in copies if not s[5]["pinned"])
+    assert len(drains) == len(copies) - len(pooled)
     assert all(s[0] == HOST_TRACK and s[2] == "sync" for s in waits)
     assert len(_named(spans, "sync")) == M + 1     # waits are not syncs
     host = sorted((s for s in spans if s[0] == HOST_TRACK and s[4]),
                   key=lambda s: s[3])
     for a, b in zip(host, host[1:]):
-        if b[1] in ("copy.d2h", "copy.h2d"):
+        if b[1] in ("copy.d2h", "copy.h2d") and not b[5]["pinned"]:
             assert a[1] == "copy.wait" and a[4] <= b[3], (a, b)
             assert (a[5]["l"], a[5]["m"]) == (b[5]["l"], b[5]["m"])
     got = defaultdict(int)

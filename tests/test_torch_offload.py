@@ -139,7 +139,10 @@ def test_plan_costs_and_snapshot_match_jax_engine():
     assert jc.pop("act_res_bytes") > 0 and tc.pop("act_res_bytes") > 0
     assert tc == jc
     assert tc["param_itemsize"] == 2
-    # the port's snapshot adds its host counters (syncs, host Adam)
+    # the port's snapshot adds its host counters (syncs, pinned pool,
+    # host Adam)
     assert set(tsnap) == (set(jsnap) - {"autotune"}) | {"counters"}
-    assert set(tsnap["counters"]) == {"host_syncs", "adam"}
+    assert set(tsnap["counters"]) == {"host_syncs", "adam", "pool_slots",
+                                      "pool_pinned_bytes", "pool_copies",
+                                      "pool_fallbacks"}
     assert set(tsnap["lookahead"]) == set(jsnap["lookahead"])

@@ -8,9 +8,11 @@ steps as warm-up, then, for each of ``--seeds`` seeds, one step with the
 tracer off and one with it on, in turns (the order flips from seed to
 seed; the two share the seed's rows). Each step ends with ``finish()``
 and a device sync. Per step it reports tokens/s, the spans recorded, the
-ring's dropped count, ``eng.host_syncs`` and the host Adam's busy seconds
+ring's dropped count, ``eng.host_syncs``, the host Adam's busy seconds
 and elements from the optimizer coordinator's counters beside the
-benchmark's own ``AdamMeter`` on the same calls.
+benchmark's own ``AdamMeter`` on the same calls, and the pinned pool's
+counters (``pool_slots``, ``pool_pinned_bytes``, ``pool_copies``,
+``pool_fallbacks``).
 
 Last, one traced step inside the benchmark's device trace
 (``harness.devtrace.DeviceTrace``, its window mark and its idle gaps):
@@ -69,7 +71,10 @@ def _step(eng, tokens, traced, adam, sync):
             "adam_params": eng.opt_c.adam_params,
             "adam_calls": eng.opt_c.adam_calls,
             "meter_adam_busy_s": adam.busy_s,
-            "meter_adam_params": adam.params}
+            "meter_adam_params": adam.params,
+            "pool": {k: v for k, v in
+                     eng.metrics_snapshot()["counters"].items()
+                     if k.startswith("pool_")}}
 
 
 def _idle_between(gaps):
