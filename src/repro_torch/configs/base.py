@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -37,6 +37,23 @@ INPUT_SHAPES = {
 # ---------------------------------------------------------------------------
 # Architecture config
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's RoPE scaling (DeepSeek-V2's ``rope_scaling`` of type
+    ``yarn``): the frequencies are interpolated by ``factor`` below the
+    ramp ``[floor(d(beta_fast)), ceil(d(beta_slow))]`` of correction
+    dimensions and kept above it, ``d(n) = dim ln(original /
+    (2 pi n)) / (2 ln theta)``; cos and sin are multiplied by
+    ``m(mscale) / m(mscale_all_dim)`` and the softmax scale by
+    ``m(mscale_all_dim)^2``, ``m(x) = 0.1 x ln(factor) + 1``."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -72,6 +89,8 @@ class ArchConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    rope_scaling: Optional[YarnScaling] = None   # MLA's rope part (None:
+                                  # plain RoPE at rope_theta)
 
     # --- MoE ---
     num_experts: int = 0          # routed experts (0 => dense MLP)
@@ -81,6 +100,13 @@ class ArchConfig:
     first_dense_layers: int = 0   # leading layers that use a dense MLP
     moe_every: int = 1            # MoE in layers where i % moe_every == moe_offset
     moe_offset: int = 0
+    moe_norm_topk: bool = True    # renormalise the top-k gates to sum 1
+    moe_aux: str = "switch"       # balance loss: "switch" (over the call's
+                                  # tokens) | "seq" (DeepSeek's, per sequence)
+    moe_aux_alpha: float = 0.01   # the offload engine's balance coefficient
+    experts_held: Optional[Tuple[int, int]] = None  # (first, count) of the
+                                  # routed experts a layer holds (None: all);
+                                  # the router keeps all num_experts outputs
 
     # --- SSM (Mamba-1) ---
     ssm_state: int = 0
@@ -108,6 +134,12 @@ class ArchConfig:
         """Vocab padded so the 16-way model axis divides it."""
         mult = 128
         return int(math.ceil(self.vocab_size / mult) * mult)
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the routed experts a MoE layer holds."""
+        return (tuple(self.experts_held) if self.experts_held
+                else (0, self.num_experts))
 
     @property
     def is_attention_free(self) -> bool:
@@ -162,7 +194,7 @@ class ArchConfig:
         mult = 3 if self.act == "swiglu" else 2
         if self.is_moe_layer(i):
             per = mult * d * self.moe_d_ff
-            return ((self.num_experts + self.num_shared_experts) * per
+            return ((self.held_experts[1] + self.num_shared_experts) * per
                     + d * self.num_experts)  # router
         return mult * d * self.d_ff
 

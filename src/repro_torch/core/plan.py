@@ -148,7 +148,7 @@ import dataclasses
 import enum
 import math
 from collections import defaultdict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.perfmodel import StorageRatios
 
@@ -617,7 +617,10 @@ def insert_prefetch(plan: Plan, depth: int = 1) -> Plan:
 class PlanCosts:
     """The byte-sizing facts :func:`plan_traffic` needs (everything else
     is in the plan)."""
-    P: int                      # per-layer flat param elements
+    P: Union[int, Tuple[int, ...]]   # per-layer flat param elements
+                                # (one count for every layer, or one a
+                                # layer: a MoE stack's leading dense
+                                # layers differ in size)
     param_itemsize: int         # low-precision param bytes per element
     ckpt_elems: int             # one boundary tensor: mb * seq * d_model
     act_itemsize: int           # activation / inter-grad bytes per element
@@ -651,7 +654,8 @@ class PlanCosts:
                            + math.prod(eng.unembed.shape)
                            + math.prod(eng.final_norm.shape))
         return PlanCosts(
-            P=eng.P, param_itemsize=item,
+            P=eng.P if len(set(eng.layer_P)) == 1 else tuple(eng.layer_P),
+            param_itemsize=item,
             ckpt_elems=ocfg.micro_batch * ocfg.seq_len * eng.cfg.d_model,
             act_itemsize=item, ratios=ocfg.ratios, alpha=ocfg.alpha,
             ranks=getattr(eng, "R", 1), head_nbytes=head_nbytes,
@@ -714,10 +718,16 @@ def _interpret(plan: Plan, costs: PlanCosts
     a = costs.act_itemsize
     u = E * a                                   # one boundary tensor
     ps = costs.param_itemsize
-    P = costs.P
     kc = _khost(x.ckpt, E)
     Mr = plan.spec.M // R
-    bounds = shard_bounds(P, R)
+    if isinstance(costs.P, tuple):
+        if R > 1:
+            raise ValueError("a data-parallel plan has one layer size")
+        layer_P = costs.P
+    else:
+        layer_P = None
+        P = costs.P
+        bounds = shard_bounds(P, R)
     out = [defaultdict(int) for _ in range(R)]
 
     def owner(m: int) -> int:
@@ -754,6 +764,9 @@ def _interpret(plan: Plan, costs: PlanCosts
 
     for op in plan.ops:
         k = op.op
+        if layer_P is not None and 0 <= op.l < len(layer_P):
+            P = layer_P[op.l]
+            bounds = [(0, P)]
         if k is Op.FETCH_PARAM:
             if costs.param_unit_nbytes:
                 # serving: per-unit param blob, tiered by byte fraction

@@ -9,7 +9,8 @@ sequence is a whole number of windows) and decode attention are plain
 torch, as the reference computes them in jnp outside any kernel;
 autograd gives the banded form its backward. MLA's train and prefill
 paths call K1 at q/k head dim ``nope + rope`` and v head dim
-``v_head_dim``; its decode is the reference's absorbed attention over
+``v_head_dim`` (a config's YaRN ``rope_scaling`` sets the rope part's
+frequencies and K1's ``scale``); its decode is the reference's absorbed attention over
 the latent cache.
 
 Caches are updated IN PLACE: where the reference builds a new cache
@@ -35,7 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import seqshard
+from repro_torch.models import common, seqshard
 from repro_torch.models.common import (apply_rope, dense_init,
                                        init_rms_scale, matmul, rms_norm)
 
@@ -272,7 +273,9 @@ def mla_apply(params, x, *, cfg, theta: float,
               mode: str = "train") -> Tuple[torch.Tensor, Optional[MLACache]]:
     """x: (B,S,d). train / prefill: k is ``[k_nope, k_rope]`` (the rope
     part shared by every head) at q/k head dim ``nope + rope`` and v at
-    ``v_head_dim``, through K1 with scale 1/sqrt(nope + rope); prefill
+    ``v_head_dim``, through K1 with scale 1/sqrt(nope + rope) (times
+    YaRN's ``m(mscale_all_dim)^2`` under ``cfg.rope_scaling``, whose
+    frequencies the rope part then takes); prefill
     fills ``cache`` in place. decode: the absorbed form in f32 — queries
     projected into the latent space, scores against the latent cache and
     its rope keys, the output projected back by ``w_uv``."""
@@ -284,7 +287,10 @@ def mla_apply(params, x, *, cfg, theta: float,
     nope, rope, vhd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                        cfg.v_head_dim)
     r = cfg.kv_lora_rank
+    ys = cfg.rope_scaling
     scale = 1.0 / math.sqrt(nope + rope)
+    if ys is not None and ys.mscale_all_dim:
+        scale *= common.yarn_mscale(ys.factor, ys.mscale_all_dim) ** 2
 
     q = (x @ params["wq"]).reshape(B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -296,9 +302,9 @@ def mla_apply(params, x, *, cfg, theta: float,
                                device=x.device)
     else:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    q_rope = apply_rope(q_rope, positions[None, :], theta)
+    q_rope = apply_rope(q_rope, positions[None, :], theta, ys)
     k_rope = apply_rope(k_rope[:, :, None, :], positions[None, :],
-                        theta)[:, :, 0, :]
+                        theta, ys)[:, :, 0, :]
 
     if mode == "decode":
         if cache is None:

@@ -208,7 +208,8 @@ def _build_cross_kv(params, enc_out, cfg) -> attn_lib.KVCache:
 
 
 def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
-                cache=None, pos: Optional[int] = None, enc_out=None):
+                cache=None, pos: Optional[int] = None, enc_out=None,
+                moe_fn=None):
     """Pre-norm residual block: the mixer — attention (GQA or MLA) or
     Mamba — then (a decoder block of an encoder-decoder) cross-attention
     against ``enc_out`` — or, in decode, against the cache's ``cross_kv``
@@ -216,7 +217,9 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
     ``mode``: train | prefill | decode. Returns (x, cache, aux_loss) — the
     MoE layer's load-balance loss, else 0; ``cache`` is updated in place
     (train takes none; prefill writes the encoder's K/V into
-    ``cross_kv``)."""
+    ``cross_kv``). ``moe_fn(params, h, cfg) -> (y, aux)`` replaces the
+    MoE layer's ``moe_ep.moe_dispatch`` (the offload engine's dropless
+    path)."""
     _supported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
@@ -254,7 +257,7 @@ def block_apply(params, x, cfg, kind: LayerKind, *, mode: str = "train",
         x = x + _cross_attend(params["cross"], hc, ckv, cfg)
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
     if kind.moe:
-        y2, aux = moe_ep.moe_dispatch(params["moe"], h2, cfg)
+        y2, aux = (moe_fn or moe_ep.moe_dispatch)(params["moe"], h2, cfg)
     else:
         y2 = mlp_apply(params["mlp"], h2, cfg.act)
     return x + y2, cache, aux

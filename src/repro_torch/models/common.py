@@ -43,17 +43,57 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 at
+    ``factor <= 1``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(head_dim: int, theta: float, ys, device=None
+               ) -> torch.Tensor:
+    """YaRN's inverse frequencies, shape (head_dim // 2,), f32:
+    ``f_inter r + f_extra (1 - r)`` with ``f_extra`` the plain
+    :func:`rope_freqs`, ``f_inter = f_extra / factor`` and ``r`` the
+    linear ramp from ``floor(d(beta_fast))`` to ``ceil(d(beta_slow))``
+    over the frequency index, ``d(n) = head_dim ln(original / (2 pi n)) /
+    (2 ln theta)`` clamped to ``[0, head_dim - 1]`` (``ys``: a
+    :class:`~repro_torch.configs.base.YarnScaling`)."""
+    def corr(n):
+        return (head_dim * math.log(ys.original_max_position
+                                    / (n * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(ys.beta_fast)), 0)
+    high = min(math.ceil(corr(ys.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_freqs(head_dim, theta, device=device)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    return extra / ys.factor * ramp + extra * (1 - ramp)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, scaling=None) -> torch.Tensor:
     """Rotary embedding, "split halves" convention (Llama/NeoX).
 
     x: (B, S, H, hd); positions: (1, S) or (B, S) integer; angles in f32.
+    ``scaling`` (a YaRN :class:`~repro_torch.configs.base.YarnScaling`)
+    takes :func:`yarn_freqs` and multiplies cos and sin by
+    ``m(mscale) / m(mscale_all_dim)``.
     """
     hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, device=x.device)             # (hd/2,)
+    if scaling is None:
+        inv = rope_freqs(hd, theta, device=x.device)         # (hd/2,)
+    else:
+        inv = yarn_freqs(hd, theta, scaling, device=x.device)
     ang = positions[..., None].float() * inv                 # (B?, S, hd/2)
     ang = ang[:, :, None, :]                                 # over heads
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

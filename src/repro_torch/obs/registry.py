@@ -71,8 +71,9 @@ def build_snapshot(eng) -> Dict[str, object]:
     * host — ``counters``: ``host_syncs`` (the executor's ``float(loss)``
       and ``BARRIER`` syncs), the pinned pools' ``pool_slots``,
       ``pool_pinned_bytes``, ``pool_copies`` and ``pool_fallbacks``
-      (:func:`_pool_counters`) and, per rank, the host Adam's ``calls``,
-      ``params`` and ``busy_s``
+      (:func:`_pool_counters`), an engine with MoE layers' ``moe_*``
+      counts (``models.moe.MoECounters``) and, per rank, the host Adam's
+      ``calls``, ``params`` and ``busy_s``
     * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
     * spans — ``trace`` (``Tracer.summary()``)
     * ``autotune`` — the decision log of an attached
@@ -105,6 +106,7 @@ def build_snapshot(eng) -> Dict[str, object]:
         "counters": {
             "host_syncs": int(eng.host_syncs),
             **_pool_counters(rks),
+            **(eng.moe.counters.snapshot() if eng.moe is not None else {}),
             "adam": [{"calls": rk.opt_c.adam_calls,
                       "params": rk.opt_c.adam_params,
                       "busy_s": rk.opt_c.adam_busy_s} for rk in rks]},

@@ -135,6 +135,11 @@ class AutotuneController:
     ``eng.autotune_log`` (embedded in ``metrics_snapshot()``)."""
 
     def __init__(self, eng, acfg: Optional[AutotuneConfig] = None):
+        if len(set(eng.layer_P)) > 1 or eng.moe is not None:
+            raise ValueError(
+                "the autotuner prices a stack of equal layers under either "
+                "activation policy; this engine's layers differ in size or "
+                "hold MoE layers, which run recompute only")
         self.eng = eng
         self.acfg = acfg or AutotuneConfig()
         self.retunes = 0

@@ -61,20 +61,20 @@ def _fname(name: str, gen: int) -> str:
     return name.replace(":", "_").replace("/", "_") + f".g{gen}.bin"
 
 
-def _stacks(eng):
-    """The engine's rank stacks with their element ranges: the
-    data-parallel engine's ranks and ``bounds``, or the single-rank
-    engine itself over ``[0, P)``."""
+def _stacks(eng, l: int = 0):
+    """The engine's rank stacks with their element ranges of layer ``l``:
+    the data-parallel engine's ranks and ``bounds``, or the single-rank
+    engine itself over ``[0, P_l)``."""
     if hasattr(eng, "ranks"):
         return list(zip(eng.ranks, eng.bounds))
-    return [(eng, (0, eng.P))]
+    return [(eng, (0, eng.layer_P[l]))]
 
 
 def _assemble(eng, attr: str, l: int) -> np.ndarray:
     """Layer ``l``'s full vector from ``attr`` (``p_vecs`` / ``m_master``
     / ``m_m`` / ``m_v``), concatenating the rank shards."""
     return np.concatenate([getattr(rk, attr)[l].read()
-                           for rk, _ in _stacks(eng)])
+                           for rk, _ in _stacks(eng, l)])
 
 
 _VEC_ATTRS = (("p", "p_vecs"), ("master", "m_master"),
@@ -223,6 +223,13 @@ def restore_checkpoint(eng, directory: str) -> int:
         arrays[name] = np.frombuffer(
             data, dtype=np.dtype(spec["dtype"])).reshape(
                 spec["shape"]).copy()
+    for l in range(eng.L):
+        for key, _ in _VEC_ATTRS:
+            n = arrays[f"{key}:{l}"].size
+            if n != eng.layer_P[l]:
+                raise CheckpointError(
+                    f"checkpoint tensor '{key}:{l}' has {n} elements, this "
+                    f"engine's layer {l} {eng.layer_P[l]}")
     for t in _HEAD_TENSORS:
         for name, like in ((t, getattr(eng, t)),
                            (f"head:{t}:m", eng.head_state[t]["m"]),
@@ -236,7 +243,7 @@ def restore_checkpoint(eng, directory: str) -> int:
     for l in range(eng.L):
         for key, attr in _VEC_ATTRS:
             arr = arrays[f"{key}:{l}"]
-            for rk, (lo, hi) in _stacks(eng):
+            for rk, (lo, hi) in _stacks(eng, l):
                 getattr(rk, attr)[l].write_full(arr[lo:hi])
 
     def dev(name, like):

@@ -969,14 +969,20 @@ class LayerResiduals:
     def __init__(self, saved: list):
         self.saved = saved
         self.out_edge = None
+        self.aux_edge = None
         self.in_edges = ()
         self._leaves = ()
         self._index: Optional[List[int]] = None
 
-    def bind(self, y: torch.Tensor, leaves: Tuple[torch.Tensor, ...]):
-        """Record the gradient edges of the forward's output and leaves."""
+    def bind(self, y: torch.Tensor, leaves: Tuple[torch.Tensor, ...],
+             aux: Optional[torch.Tensor] = None):
+        """Record the gradient edges of the forward's output and leaves,
+        and of its scalar loss term ``aux`` (a MoE layer's balance loss)
+        when it has one."""
         from torch.autograd.graph import get_gradient_edge
         self.out_edge = get_gradient_edge(y)
+        if aux is not None:
+            self.aux_edge = get_gradient_edge(aux)
         self.in_edges = tuple(get_gradient_edge(t) for t in leaves)
         self._leaves = leaves
 

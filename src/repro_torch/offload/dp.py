@@ -52,7 +52,6 @@ from repro_torch import resolve_device
 from repro_torch.core.plan import (PlanSpec, compile_vertical, insert_prefetch,
                                    mb_order, shard_bounds)
 from repro_torch.io import IOConfig, IOEngine
-from repro_torch.models import blocks as blk
 from repro_torch.obs import Tracer
 from repro_torch.offload.coordinators import (ActivationCoordinator,
                                               InterLayerTensorCoordinator,
@@ -62,7 +61,7 @@ from repro_torch.offload.engine import (OffloadConfig, build_training_state,
                                         free_pools, lookahead_stats,
                                         reset_lookahead_stats,
                                         shifted_labels, split_microbatches,
-                                        swap_plan)
+                                        stack_kinds, swap_plan)
 from repro_torch.offload.executor import execute_plan
 from repro_torch.offload.stores import HostStore, SSDStore, TrafficMeter
 
@@ -118,15 +117,14 @@ class DataParallelOffloadEngine:
                  ranks: int = 2, params=None, device=None):
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"the offload engine drives dense stacks only, as the "
-                f"reference's engine does (got {cfg.family!r})")
+                f"the data-parallel engine drives dense stacks only, as the "
+                f"reference's engine does (got {cfg.family!r}): a MoE "
+                f"stack's layers differ in size, and its ranks would shard "
+                f"each layer's parameters differently")
         if ocfg.schedule != "vertical":
             raise ValueError("the data-parallel engine runs the vertical "
                              f"schedule (got {ocfg.schedule!r})")
-        plan = blk.build_plan(cfg)
-        if len(plan.period) != 1 or plan.prefix or plan.suffix:
-            raise ValueError("the offload engine drives homogeneous stacks "
-                             "of one-block periods (num_layers >= 2)")
+        self.kinds = stack_kinds(cfg)
         M = ocfg.num_microbatches
         if ranks < 1 or M % ranks:
             raise ValueError(
@@ -134,7 +132,7 @@ class DataParallelOffloadEngine:
                 f"{ranks} ranks")
         self.cfg = cfg
         self.ocfg = ocfg
-        self.kind = plan.period[0]
+        self.kind = self.kinds[-1]
         self.L = cfg.num_layers
         self.R = ranks
         self.Mr = M // ranks

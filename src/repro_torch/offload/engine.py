@@ -21,6 +21,16 @@ embedding and LM head stay device-resident with their own Adam, K2
 reference keeps none either). Every layer's attention runs K1
 (``kernels.flash_attention``), forward and backward.
 
+Stacks: dense stacks of one block kind, as the reference's engine, and
+MoE stacks of ``first_dense_layers`` leading layers of one kind followed
+by layers of one MoE kind (:func:`stack_kinds`), each layer with its own
+parameter count ``layer_P[l]``. A MoE layer runs the dropless path
+(``models.moe.moe_dropless``) over the experts it holds; its balance
+loss, ``cfg.moe_aux_alpha`` x the mean over the step's sequences,
+joins the step's loss (read at the next ``float(loss)``, no sync of its
+own) and its gradient enters the layer's backward under recompute
+(:class:`MoEState`).
+
 A layer's parameters are one flat vector in the reference's
 ``_flatten_tree`` order (leaves in sorted-key order); ``unflatten``
 returns views of it, so one ``torch.autograd.grad`` with respect to the
@@ -59,6 +69,7 @@ from repro_torch.io import IOConfig, IOEngine
 from repro_torch.io.config import PATH_POLICIES
 from repro_torch.kernels.fused_adam import fused_adam
 from repro_torch.models import blocks as blk
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import embed_init, init_rms_scale, rms_norm
 from repro_torch.models.model import _period_slice, _xent_chunk
 from repro_torch.obs import Tracer
@@ -74,6 +85,7 @@ from repro_torch.offload.stores import (HostStore, PinnedPool, SSDStore,
 from repro_torch.optim.cpu_adam import CpuAdam
 
 __all__ = ["OffloadConfig", "OffloadEngine", "build_block_fns",
+           "stack_kinds", "MoEState", "head_loss_grads",
            "bind_block_fns", "mb_order", "split_microbatches",
            "shifted_labels", "engine_workload", "lookahead_stats",
            "reset_lookahead_stats", "offload_state", "act_residual_nbytes",
@@ -177,42 +189,152 @@ def _make_unflatten(treedef, shapes):
 
 
 def offload_state(cfg, params) -> Dict[str, object]:
-    """The engine's ``params=`` dict from the port's model tree (a dense
-    stack of one-block periods): ``{"layers": [flat vector per layer],
-    "embed", "unembed", "final_norm"}``."""
+    """The engine's ``params=`` dict from the port's model tree (prefix
+    blocks, then one-block periods): ``{"layers": [flat vector per
+    layer], "embed", "unembed", "final_norm"}``."""
     plan = blk.build_plan(cfg)
-    if len(plan.period) != 1 or plan.prefix or plan.suffix:
+    if len(plan.period) > 1 or plan.suffix:
         raise ValueError("the offload engine drives stacks of one-block "
                          "periods")
-    return {"layers": [_flat(_period_slice(params["periods"], i)["sub0"])
-                       for i in range(plan.n_periods)],
+    return {"layers": ([_flat(p) for p in params["prefix"]]
+                       + [_flat(_period_slice(params["periods"], i)["sub0"])
+                          for i in range(plan.n_periods)]),
             "embed": params["embed"], "unembed": params["unembed"],
             "final_norm": params["final_norm"]}
 
 
-def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
+def stack_kinds(cfg) -> List[blk.LayerKind]:
+    """Each layer's kind, for a stack the offload engine drives: a dense
+    stack of one kind, or a MoE stack of ``first_dense_layers`` leading
+    layers of one kind and then layers of one MoE kind; at least two
+    layers. Raises ``NotImplementedError`` for another family and
+    ``ValueError`` for another stack."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"the offload engine drives dense stacks only, as the "
+            f"reference's engine does, and MoE stacks (got {cfg.family!r})")
+    kinds = blk.build_plan(cfg).all_kinds()
+    lead = cfg.first_dense_layers if cfg.family == "moe" else 0
+    if (len(kinds) < 2 or len(set(kinds[:lead])) > 1
+            or len(set(kinds[lead:])) != 1
+            or any(k.moe for k in kinds[:lead])):
+        raise ValueError("the offload engine drives homogeneous stacks of "
+                         "one-block periods (num_layers >= 2), after the "
+                         "leading dense layers of a MoE stack")
+    return kinds
+
+
+class MoEState:
+    """An engine's MoE bookkeeping. ``coef`` scales each micro-batch's
+    summed balance term (``moe_dropless``'s aux) so that the step's
+    terms add up to ``moe_aux_alpha`` x their mean over the step's
+    sequences. The first forwards' terms wait in ``pending`` (on the
+    device) until the next ``float(loss)`` reads them with its own
+    micro-batch's loss; ``counters`` are the dropless path's
+    (:class:`repro_torch.models.moe.MoECounters`), settled at the
+    ``BARRIER``; ``tracer`` records its ``moe.*`` spans."""
+
+    def __init__(self, cfg, ocfg: OffloadConfig, device, tracer):
+        self.coef = cfg.moe_aux_alpha / (ocfg.num_microbatches
+                                         * ocfg.micro_batch)
+        self.counters = moe_lib.MoECounters(cfg.held_experts[1], device)
+        self.tracer = tracer
+        self.pending: Optional[torch.Tensor] = None
+
+    def add_aux(self, aux: torch.Tensor):
+        self.pending = aux if self.pending is None else self.pending + aux
+
+    def with_aux(self, loss: torch.Tensor) -> torch.Tensor:
+        """``loss`` plus the balance terms waiting since the last read."""
+        aux, self.pending = self.pending, None
+        return loss if aux is None else loss + aux
+
+
+#: the most logits (rows x vocabulary) the head forms at once; above it,
+#: :func:`head_loss_grads` runs the rows in chunks
+HEAD_CHUNK_ELEMS = 4096 * 49152
+
+
+def head_loss_grads(unembed, norm, x, labels, weights, denom, eps,
+                    chunk_rows: int = 0):
+    """The LM head's ``(loss, d_unembed, d_norm, dx)`` for one
+    micro-batch: final RMSNorm, logits, the weighted token cross-entropy
+    summed and divided by ``denom``. ``chunk_rows`` > 0 forms the logits
+    that many rows (of B S) at a time, each chunk's backward run before
+    the next, summing the loss and ``d_unembed`` in f32; 0 forms them at
+    once."""
+    u = unembed.detach().requires_grad_()
+    nm = norm.detach().requires_grad_()
+    xx = x.detach().requires_grad_()
+    with torch.enable_grad():
+        h = rms_norm(xx, nm, eps)
+        if chunk_rows <= 0:
+            tot, _ = _xent_chunk(h, u, labels, weights)
+            loss = tot / denom
+            du, dn, dx = torch.autograd.grad(loss, (u, nm, xx))
+            return loss.detach(), du, dn, dx
+        hf = h.detach().reshape(-1, h.shape[-1])
+        lab, w = labels.reshape(-1), weights.reshape(-1)
+        dh = torch.empty_like(hf)
+        du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        loss = torch.zeros((), dtype=torch.float32, device=u.device)
+        for lo in range(0, hf.shape[0], chunk_rows):
+            hc = hf[lo:lo + chunk_rows].requires_grad_()
+            tot, _ = _xent_chunk(hc, u, lab[lo:lo + chunk_rows],
+                                 w[lo:lo + chunk_rows])
+            part = tot / denom
+            du_c, dh[lo:lo + chunk_rows] = torch.autograd.grad(part, (u, hc))
+            du += du_c
+            loss += part.detach()
+        dn, dx = torch.autograd.grad(h, (nm, xx), dh.view_as(h))
+    return loss, du, dn, dx
+
+
+def build_block_fns(cfg, kind, unflatten, moe: Optional[MoEState] = None,
+                    head_chunk_rows: int = 0) -> Dict[str, object]:
     """The per-layer / embedding / head functions the executor calls.
 
-    ``layer_fwd_res`` runs the layer's forward with autograd on the
-    leaves ``(p_flat, x)``, every saved tensor caught by
+    ``layer_fwd(p_flat, x, l, m)`` is a layer's first forward (no
+    autograd); ``layer_fwd_res`` runs the layer's forward with autograd
+    on the leaves ``(p_flat, x)``, every saved tensor caught by
     ``saved_tensors_hooks`` into a :class:`LayerResiduals`, and returns
     ``(y, residuals)``; ``layer_bwd_res`` is one ``torch.autograd.grad``
     from those residuals, returning ``(dx, dp in f32)``. Both activation
     policies run backward from such residuals — spill restores them from
     storage, recompute re-runs ``layer_fwd_res`` at backward time — so
     with a deterministic forward their gradients are bitwise equal.
-    ``adam_dev`` is K2 over a device-resident tensor and its moments."""
+    ``l`` and ``m`` (layer, micro-batch) name the call in a MoE layer's
+    spans. A MoE ``kind`` runs the dropless path with ``moe``'s counters
+    and tracer: ``layer_fwd`` counts its routing and adds its balance
+    term to ``moe.pending``; the residuals carry the term, whose gradient
+    (1: it is a summand of the loss) ``layer_bwd_res`` adds. ``head_bwd``
+    is :func:`head_loss_grads` at ``head_chunk_rows``; ``adam_dev`` is K2
+    over a device-resident tensor and its moments."""
+    if kind.moe and moe is None:
+        raise ValueError("a MoE layer's block functions need the engine's "
+                         "MoEState")
 
-    def block(p_flat, x):
-        y, _, _ = blk.block_apply(unflatten(p_flat), x, cfg, kind,
-                                  mode="train")
+    def block(p_flat, x, l, m, record):
+        kw = {}
+        if kind.moe:
+            counters = moe.counters if record else None
+
+            def moe_fn(p, h, c):
+                return moe_lib.moe_dropless(p, h, c, counters=counters,
+                                            tracer=moe.tracer, where=(l, m))
+            kw["moe_fn"] = moe_fn
+        y, _, aux = blk.block_apply(unflatten(p_flat), x, cfg, kind,
+                                    mode="train", **kw)
+        return y, (aux * moe.coef if kind.moe else None)
+
+    def layer_fwd(p_flat, x, l=-1, m=-1):
+        with torch.no_grad():
+            y, aux = block(p_flat, x, l, m, True)
+        if aux is not None:
+            moe.add_aux(aux)
         return y
 
-    def layer_fwd(p_flat, x):
-        with torch.no_grad():
-            return block(p_flat, x)
-
-    def layer_fwd_res(p_flat, x):
+    def layer_fwd_res(p_flat, x, l=-1, m=-1):
         p = p_flat.detach().requires_grad_()
         xx = x.detach().requires_grad_()
         # the graph keeps the unpack hook, so nothing the hook reaches may
@@ -233,13 +355,18 @@ def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
 
         with torch.enable_grad(), \
                 torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-            y = block(p, xx)
+            y, aux = block(p, xx, l, m, False)
         res = LayerResiduals(saved)
-        res.bind(y, (p, xx))
+        res.bind(y, (p, xx), aux)
         return y.detach(), res
 
     def layer_bwd_res(res, dy):
-        dp, dx = torch.autograd.grad(res.out_edge, res.in_edges, dy)
+        if res.aux_edge is None:
+            dp, dx = torch.autograd.grad(res.out_edge, res.in_edges, dy)
+        else:
+            one = torch.ones((), dtype=torch.float32, device=dy.device)
+            dp, dx = torch.autograd.grad((res.out_edge, res.aux_edge),
+                                         res.in_edges, (dy, one))
         res.saved.clear()
         return dx, dp.float()
 
@@ -247,15 +374,8 @@ def build_block_fns(cfg, kind, unflatten) -> Dict[str, object]:
         return embed[tokens]
 
     def head_bwd(unembed, norm, x, labels, weights, denom):
-        u = unembed.detach().requires_grad_()
-        nm = norm.detach().requires_grad_()
-        xx = x.detach().requires_grad_()
-        with torch.enable_grad():
-            h = rms_norm(xx, nm, cfg.norm_eps)
-            tot, _ = _xent_chunk(h, u, labels, weights)
-            loss = tot / denom
-            du, dn, dx = torch.autograd.grad(loss, (u, nm, xx))
-        return loss.detach(), du, dn, dx
+        return head_loss_grads(unembed, norm, x, labels, weights, denom,
+                               cfg.norm_eps, head_chunk_rows)
 
     def embed_bwd(embed, tokens, dx):
         d = torch.zeros_like(embed)
@@ -370,12 +490,15 @@ def reset_lookahead_stats(eng, coordinators) -> None:
     """Zero every measured-iteration meter — stall and phase timers,
     adaptive-skip, fallback and host-sync counters, lookahead hit/miss
     counts, the host Adam's counters, the pinned pools' copy and
-    fallback counts (not their sizes) — so a second measured iteration
-    after a reset reports like the first (traffic meters have their own
-    ``reset``; the I/O engines' stats are lifetime counters)."""
+    fallback counts (not their sizes), the MoE counters — so a second
+    measured iteration after a reset reports like the first (traffic
+    meters have their own ``reset``; the I/O engines' stats are lifetime
+    counters)."""
     eng.op_seconds.clear()
     eng.hint_skips = eng.act_skips = eng.act_fallbacks = 0
     eng.host_syncs = 0
+    if eng.moe is not None:
+        eng.moe.counters.reset()
     for k in eng.phase_time:
         eng.phase_time[k] = 0.0
     for c in coordinators:
@@ -395,36 +518,41 @@ def build_training_state(eng, seed, params, stacks_for) -> None:
     embedding and LM head, so a seed gives the same model to every
     engine) — is cast to the engine's dtype and written, with its f32
     master and zero moments, into the tiered vectors of each stack that
-    ``stacks_for(P)`` returns as ``(stack, (lo, hi))``: the engine itself
-    over ``[0, P)``, or each data-parallel rank over its shard. A stack
-    carries ``host``, ``ssd``, ``meter`` and ``ioe`` and receives
+    ``stacks_for(P_l)`` returns as ``(stack, (lo, hi))``: the engine
+    itself over ``[0, P_l)``, or each data-parallel rank over its shard.
+    A stack carries ``host``, ``ssd``, ``meter`` and ``ioe`` and receives
     ``p_vecs`` / ``m_master`` / ``m_m`` / ``m_v`` and the four
-    coordinators. The embedding, LM head and final norm stay on the
-    engine's device with their Adam moments."""
+    coordinators. Layer ``l`` is of kind ``eng.kinds[l]``, with
+    ``eng.layer_P[l]`` parameters (``eng.P`` the largest). The embedding,
+    LM head and final norm stay on the engine's device with their Adam
+    moments."""
     cfg, ocfg = eng.cfg, eng.ocfg
     gen = torch.Generator(device=eng.device)
     gen.manual_seed(int(seed))
     x = ocfg.ratios
     hdt = host_dtype(eng.dtype)
-    stacks = tmpl = None
+    tmpl = {}                   # kind -> (treedef, leaf shapes, P)
+    eng.layer_P = []
     for l in range(eng.L):
-        if params is None or tmpl is None:
-            lp = blk.block_init(gen, cfg, eng.kind, dtype=eng.dtype,
+        kind = eng.kinds[l]
+        if params is None or kind not in tmpl:
+            lp = blk.block_init(gen, cfg, kind, dtype=eng.dtype,
                                 device=eng.device)
             leaves, treedef = tree.flatten(lp)
-            tmpl = (treedef, [tuple(t.shape) for t in leaves])
+            tmpl[kind] = (treedef, [tuple(t.shape) for t in leaves],
+                          sum(t.numel() for t in leaves))
         flat = (_flat(lp) if params is None
                 else params["layers"][l].reshape(-1))
         lp = leaves = None
         flat = flat.to(eng.dtype)
+        if flat.numel() != tmpl[kind][2]:
+            raise ValueError(f"layer {l} has {flat.numel()} parameters, "
+                             f"its kind {tmpl[kind][2]}")
+        eng.layer_P.append(flat.numel())
+        stacks = stacks_for(flat.numel())
         if l == 0:
-            eng.P = flat.numel()
-            stacks = stacks_for(eng.P)
             for st, _ in stacks:
                 st.p_vecs, st.m_master, st.m_m, st.m_v = [], [], [], []
-        elif flat.numel() != eng.P:
-            raise ValueError(f"layer {l} has {flat.numel()} parameters, "
-                             f"layer 0 {eng.P}")
         lowp = to_host(flat)
         master = flat.float().cpu().numpy()
         del flat
@@ -444,7 +572,9 @@ def build_training_state(eng, seed, params, stacks_for) -> None:
                 lst.append(tv)
             del zeros
         del lowp, master
-    eng._unflatten = _make_unflatten(*tmpl)
+    eng.P = max(eng.layer_P)
+    unflatten = {k: _make_unflatten(t, shapes) for k, (t, shapes, _)
+                 in tmpl.items()}
 
     # ---- embedding / head resident on the device (+ K2 Adam) ----
     if params is None:
@@ -480,16 +610,38 @@ def build_training_state(eng, seed, params, stacks_for) -> None:
     for c in eng._coordinators():
         c.tracer = eng.tracer
 
-    bind_block_fns(eng, build_block_fns(cfg, eng.kind, eng._unflatten))
+    eng.moe = (MoEState(cfg, ocfg, eng.device, eng.tracer)
+               if any(k.moe for k in eng.kinds) else None)
+    rows = ocfg.micro_batch * ocfg.seq_len
+    chunk = (max(1, HEAD_CHUNK_ELEMS // cfg.padded_vocab)
+             if rows * cfg.padded_vocab > HEAD_CHUNK_ELEMS else 0)
+    fns = {k: build_block_fns(cfg, k, unflatten[k], eng.moe, chunk)
+           for k in tmpl}
+    bind_block_fns(eng, fns[eng.kind])
+    if len(fns) > 1:
+        # the executor names the layer; each runs its own kind's functions
+        by_layer = [fns[k] for k in eng.kinds]
+        eng.j_layer_fwd = lambda p, x, l=-1, m=-1: \
+            by_layer[l]["layer_fwd"](p, x, l, m)
+        eng.j_layer_fwd_res = lambda p, x, l=-1, m=-1: \
+            by_layer[l]["layer_fwd_res"](p, x, l, m)
     # size the activation stream exactly (one (layer, mb) residual
-    # payload) and resolve the recompute / spill / auto knob
-    eng.act_nbytes = act_residual_nbytes(
-        eng.j_layer_fwd_res, eng.P, eng.dtype, ocfg.micro_batch,
-        ocfg.seq_len, cfg.d_model, eng.device)
+    # payload, the largest kind's) and resolve the recompute / spill /
+    # auto knob
+    eng.act_nbytes = max(
+        act_residual_nbytes(
+            lambda p, xx, l=eng.kinds.index(k): eng.j_layer_fwd_res(p, xx, l),
+            tmpl[k][2], eng.dtype, ocfg.micro_batch, ocfg.seq_len,
+            cfg.d_model, eng.device)
+        for k in tmpl)
     for st, _ in stacks:
         st.act_c.nbytes = eng.act_nbytes
     eng.act_policy = resolve_activation_policy(
         ocfg, cfg, eng.P, eng.dtype.itemsize, eng.act_nbytes)
+    if eng.moe is not None and eng.act_policy != "recompute":
+        raise ValueError("a stack with MoE layers runs the recompute "
+                         "activation policy: its balance loss and routing "
+                         "counters ride the first forward")
     eng.act_fallbacks = 0       # micro-batches degraded to recompute
     eng.op_seconds = defaultdict(float)
     eng.hint_skips = 0          # hints skipped under backpressure
@@ -616,7 +768,8 @@ def shifted_labels(tok_mb: np.ndarray, device="cpu"):
 
 
 class OffloadEngine:
-    """SSD-offloaded training of a dense stack. Construction: model
+    """SSD-offloaded training of a dense stack, or of a MoE stack with
+    leading dense layers (:func:`stack_kinds`). Construction: model
     config, offload config, seed, SSD workdir; ``params`` (tensors, as
     :func:`offload_state` and ``weights.offload_state_from_jax`` make
     them) replaces the seeded init and is not modified; ``device``
@@ -624,17 +777,10 @@ class OffloadEngine:
 
     def __init__(self, cfg, ocfg: OffloadConfig, seed, workdir: str, *,
                  params=None, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"the offload engine drives dense stacks only, as the "
-                f"reference's engine does (got {cfg.family!r})")
-        plan = blk.build_plan(cfg)
-        if len(plan.period) != 1 or plan.prefix or plan.suffix:
-            raise ValueError("the offload engine drives homogeneous stacks "
-                             "of one-block periods (num_layers >= 2)")
+        self.kinds = stack_kinds(cfg)
         self.cfg = cfg
         self.ocfg = ocfg
-        self.kind = plan.period[0]
+        self.kind = self.kinds[-1]
         self.L = cfg.num_layers
         self.device = resolve_device(device)
         self.dtype = getattr(torch, ocfg.param_dtype)

@@ -34,12 +34,18 @@ engine's live queue says the SSD is saturated (``eng.hint_skips``).
 Stall metering: every op's wall-clock accumulates into
 ``eng.op_seconds[op.name]``; :func:`stall_seconds` sums the kinds the
 device blocks on. With the engine's tracer enabled each op is also one
-span on the executor's track (``exec``), and the host work inside the
+span on the executor's track (``exec``, its args naming the layer's
+``kind``, such as ``mla+moe``), and the host work inside the
 ops goes on ``exec.host``: the token and label copies, the f32 gradient
 buffer's copies (``GRAD_SPILL`` / ``GRAD_FETCH_ACC``) and the
 coordinators' copies (category ``copy``), and each host sync (``sync``).
 ``BARRIER`` synchronises the card; it and each ``float(loss)`` count in
 ``eng.host_syncs`` whether or not the tracer records.
+
+MoE layers (``eng.moe``): the layer functions take the op's layer and
+micro-batch. The balance terms of the first forwards join the next
+``float(loss)`` on the device, and the routing counters are settled at
+``BARRIER``, after its sync: the MoE path adds no host sync.
 
 Activation stream: under ``act_spill`` plans ``FWD`` keeps the layer's
 autograd residuals, ``SPILL_ACT`` streams them out (or, with
@@ -136,6 +142,16 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
     def rank_of(m: int):
         return ranks[m // Mr] if multi else ranks[0]
 
+    moe = eng.moe
+    kinds = eng.kinds
+
+    def kind_of(l: int):
+        """A plan span's layer kind, e.g. ``mla+moe`` (None off a layer)."""
+        if not 0 <= l < len(kinds):
+            return None
+        k = kinds[l]
+        return f"{k.mixer}+{'moe' if k.moe else 'mlp'}"
+
     def skip_evt(kind: str, op):
         if rec:
             tracer.instant(EXEC_TRACK, f"skip:{kind}", CAT_HINT,
@@ -203,9 +219,10 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                 if spill:
                     # keep the layer's residuals for the act stream
                     regs[("y", op.m)], regs[("res", op.m)] = \
-                        eng.j_layer_fwd_res(p_dev, x_in)
+                        eng.j_layer_fwd_res(p_dev, x_in, op.l, op.m)
                 else:
-                    regs[("y", op.m)] = eng.j_layer_fwd(p_dev, x_in)
+                    regs[("y", op.m)] = eng.j_layer_fwd(p_dev, x_in, op.l,
+                                                        op.m)
                 del x_in
             elif k is Op.SPILL_ACT:
                 res = regs.pop(("res", op.m))
@@ -269,7 +286,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                 res = regs.pop(("res", op.m), None)
                 if res is None:
                     _, res = eng.j_layer_fwd_res(p_dev,
-                                                 regs.pop(("x", op.m)))
+                                                 regs.pop(("x", op.m)),
+                                                 op.l, op.m)
                 dx, dp = eng.j_layer_bwd_res(res, regs.pop(("dy", op.m)))
                 del res
                 if op.acc:
@@ -313,6 +331,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                     eng.unembed, eng.final_norm, regs.pop(("x", op.m)),
                     lab, w, denom)
                 if op.acc:
+                    if moe is not None:
+                        loss = moe.with_aux(loss)
                     loss_total += host_sync("loss", op.l, op.m,
                                             lambda: float(loss))
                     d_un = d_un + du
@@ -330,7 +350,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                     embed_stash[op.m] = d
                 del d
             elif k is Op.GRAD_INIT:
-                gacc = torch.zeros((eng.P,), dtype=torch.float32, device=dev)
+                gacc = torch.zeros((eng.layer_P[op.l],), dtype=torch.float32,
+                                   device=dev)
             elif k is Op.GRAD_SPILL:
                 rk = ranks[0]
                 ts = _copy_stamp(tracer, dev, op.l)
@@ -402,6 +423,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                     rk.opt_c.wait_all()
             elif k is Op.BARRIER:
                 host_sync("barrier", op.l, op.m, sync_device)
+                if moe is not None:
+                    moe.counters.settle()    # the card is synchronised
             elif k is Op.PHASE:
                 if op.tag == "fwd":
                     wave += 1
@@ -415,7 +438,7 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
                     EXEC_TRACK, k.name, CAT_PLAN, t_op, t_op + dt,
                     l=op.l, m=op.m, wave=wave,
                     rank=(op.m // Mr if multi and op.m >= 0 else 0),
-                    step=step)
+                    step=step, kind=kind_of(op.l))
         flip(None)
     except BaseException:
         # Mid-plan failure: free the device slots and cancel in-flight
@@ -427,6 +450,8 @@ def execute_plan(eng, plan: Plan, tokens: np.ndarray) -> float:
         regs.clear()
         per_mb_dp = head_stash = embed_stash = {}
         gacc = p_dev = None
+        if moe is not None:
+            moe.pending = None
         for rk in ranks:
             for fn in (rk.params_c.reset, rk.params_c.clear_gates,
                        rk.ckpt_c.clear, rk.act_c.clear, rk.opt_c.clear):

@@ -458,8 +458,6 @@ def test_offload_engine_matches_reference_engine(arch):
 
 @pytest.mark.parametrize("arch,engine,exc", [
     ("gemma3-1b", "offload", ValueError),
-    ("deepseek-v2-lite-16b", "offload", NotImplementedError),
-    ("qwen3-moe-235b-a22b", "offload", NotImplementedError),
     ("deepseek-v2-lite-16b", "serve", NotImplementedError),
     ("qwen3-moe-235b-a22b", "serve", NotImplementedError),
     ("whisper-base", "offload", NotImplementedError),
@@ -470,7 +468,8 @@ def test_engines_refuse_what_the_reference_refuses(arch, engine, exc):
     """The reference's engines drive dense stacks only, and its offload
     engine one homogeneous period (``serve/engine.py:178``,
     ``offload/engine.py:412-414``): the port refuses the same, the
-    encoder-decoder and VLM families included."""
+    encoder-decoder and VLM families included; its offload engine also
+    takes MoE stacks (``tests/test_torch_offload_moe.py``)."""
     cfg = get_smoke(arch)
     with tempfile.TemporaryDirectory() as d:
         with pytest.raises(exc):

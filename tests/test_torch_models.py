@@ -307,10 +307,16 @@ def test_unsupported_layers_raise_naming_the_later_slice(arch):
     block, then GQA + MoE)."""
     from repro.configs import get_smoke as jget_smoke
     from repro_torch.configs import get_smoke
-    assert dataclasses.asdict(get_config(arch)) == \
-        dataclasses.asdict(jget_config(arch))
     cfg = get_smoke(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jget_smoke(arch))
+    for port, ref in ((get_config(arch), jget_config(arch)),
+                      (cfg, jget_smoke(arch))):
+        mine, theirs = dataclasses.asdict(port), dataclasses.asdict(ref)
+        assert {k: mine[k] for k in theirs} == theirs
+        # the port's own fields (YaRN, the MoE gate and balance options,
+        # the experts held) stand at the defaults that mean the
+        # reference's behaviour
+        assert all(mine[f.name] == f.default
+                   for f in dataclasses.fields(port) if f.name not in theirs)
     caches = mdl.init_caches(cfg, 1, 8, device="cpu")
     assert [sorted(c) for c in caches["prefix"]] == [["ssm"], ["kv"]]
     params = mdl.init_params(cfg, 0, device="cpu")
