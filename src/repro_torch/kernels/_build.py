@@ -1,6 +1,7 @@
-"""Build the port's CUDA sources at first use.
+"""Build the port's CUDA and host C++ sources at first use.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and each
+host source ``csrc/<name>.cpp`` by the system C++ compiler, into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries land in
 ``repro_torch/_build/`` (listed in ``.gitignore``), named by a hash of
@@ -30,6 +31,15 @@ SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the host sources (``csrc/<name>.cpp``), built by the system C++ compiler
+HOST_SOURCES = ("cpu_adam",)
+
+#: plain ``-O3`` with no contraction into fused multiply-adds, no
+#: ``-ffast-math`` and no ``-march``: the host Adam must give numpy's
+#: bits, and a library may be reused on another host
+CXX_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-fno-math-errno",
+             "-fPIC", "-shared", "-pthread")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
 _lock = threading.Lock()
@@ -46,17 +56,34 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: a C++ compiler is needed to build "
+                       "the port's host sources (csrc/*.cpp)")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _flags(name: str) -> Tuple[str, ...]:
+    return CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name).read_bytes()
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
 def _start(name: str) -> Tuple[Path, subprocess.Popen]:
     out = _target(name)
+    compiler = _cxx() if name in HOST_SOURCES else _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [compiler, *_flags(name), "-o", str(tmp), str(_source(name))]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
@@ -65,7 +92,8 @@ def _finish(name: str, out: Path, proc: subprocess.Popen) -> str:
     log, _ = proc.communicate()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}:\n{log}")
+        raise RuntimeError(f"{Path(proc.args[0]).name} failed to build "
+                           f"{name}:\n{log}")
     os.replace(tmp, out)
     (BUILD_DIR / f"{name}.log").write_text(log)
     return log
@@ -91,7 +119,8 @@ def build_all() -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``, a host
+    source), built on first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:

@@ -72,8 +72,9 @@ def build_snapshot(eng) -> Dict[str, object]:
       and ``BARRIER`` syncs), the pinned pools' ``pool_slots``,
       ``pool_pinned_bytes``, ``pool_copies`` and ``pool_fallbacks``
       (:func:`_pool_counters`), an engine with MoE layers' ``moe_*``
-      counts (``models.moe.MoECounters``) and, per rank, the host Adam's
-      ``calls``, ``params`` and ``busy_s``
+      counts (``models.moe.MoECounters``), per rank the host Adam's
+      ``calls``, ``params`` and ``busy_s``, and ``adam_threads``, the
+      width of the host Adam's shared pool
     * prediction inputs — ``plan_costs`` (``PlanCosts.from_engine``)
     * spans — ``trace`` (``Tracer.summary()``)
     * ``autotune`` — the decision log of an attached
@@ -82,6 +83,7 @@ def build_snapshot(eng) -> Dict[str, object]:
     """
     from repro_torch.core.plan import PlanCosts
     from repro_torch.offload.executor import stall_seconds
+    from repro_torch.optim.cpu_adam import pool_width
 
     rks = _rank_stacks(eng)
     snap = {
@@ -109,7 +111,8 @@ def build_snapshot(eng) -> Dict[str, object]:
             **(eng.moe.counters.snapshot() if eng.moe is not None else {}),
             "adam": [{"calls": rk.opt_c.adam_calls,
                       "params": rk.opt_c.adam_params,
-                      "busy_s": rk.opt_c.adam_busy_s} for rk in rks]},
+                      "busy_s": rk.opt_c.adam_busy_s} for rk in rks],
+            "adam_threads": pool_width()},
         "plan_costs": dataclasses.asdict(PlanCosts.from_engine(eng)),
         "trace": eng.tracer.summary(),
     }

@@ -44,11 +44,12 @@ tracer records, each copy between the card and host memory is one
 ``copy.d2h`` / ``copy.h2d`` span (category ``copy``, with the metered
 bytes and category, and ``pinned`` true for a copy through a pool
 slot), the checkpoint tier's host-side assembly one ``host.stage`` span,
-each host Adam update one ``adam.update`` span and
-each wait on an optimizer request one ``opt.wait`` span naming the
-request (``req``), all on the calling thread's track
-(``obs.tracer.thread_track``). The optimizer coordinator also counts its
-Adam calls, elements and busy seconds whether or not the tracer records.
+each host Adam update one ``adam.update`` span (``threads``: the pool's
+threads that ran it) and each wait on an optimizer request one
+``opt.wait`` span naming the request (``req``), all on the calling
+thread's track (``obs.tracer.thread_track``). The optimizer coordinator
+also counts its Adam calls, elements and busy seconds whether or not the
+tracer records.
 
 Device tensors cross to the host only on the caller's (executor's)
 thread, before any ``engine.submit``: no engine worker touches CUDA.
@@ -739,7 +740,7 @@ class OptimizerStepCoordinator:
         if tr is not None and tr.enabled:
             tr.record(thread_track(), "adam.update", CAT_OPT, t0, t1,
                       seg=seg, params=int(n), l=l, step=step,
-                      req=current_req())
+                      threads=self.adam.last_threads, req=current_req())
 
     def _wait_span(self, t0: float, kind: str, req: IORequest, l: int,
                    step: int):
@@ -779,15 +780,20 @@ class OptimizerStepCoordinator:
     def submit_early(self, l: int, g_dev: torch.Tensor, step: int):
         """After layer l's backward: copy the grads to the host (here, on
         the caller's thread), update the (1-α) fraction in an engine
-        request, retain the α fraction's grads on the host."""
+        request, retain the α fraction's grads on the host. The α tail is
+        retained here, on the caller's thread, so the host store's
+        residency (and its peak) does not depend on when a worker runs
+        the request; it is a view, since the request holds all of ``g``
+        until ``flush_late`` takes both."""
         t0 = _copy_stamp(self.tracer, g_dev.device, l)
         g = g_dev.detach().float().cpu().numpy()
         _xfer(self.meter, self.engine, "grad", "gpu->cpu", g.nbytes,
               self.tracer, t0, l)
+        k = self._k_early(l)
+        if k < self.masters[l].n:
+            self.host.put(f"pending_grad:{l}", g[k:])
 
         def work():
-            n = self.masters[l].n
-            k = self._k_early(l)
             if k > 0:
                 mast = self.masters[l].read_range(0, k)
                 m_ = self.ms[l].read_range(0, k)
@@ -797,8 +803,6 @@ class OptimizerStepCoordinator:
                 self.ms[l].write_seg(m_, 0)
                 self.vs[l].write_seg(v_, 0)
                 self.params[l].write_seg(host_cast(mast, self.param_dtype), 0)
-            if k < n:
-                self.host.put(f"pending_grad:{l}", g[k:].copy())
 
         self._early_futs[l] = self.engine.submit(
             work, priority=IOPriority.OPTIMIZER_STATE, category="opt",

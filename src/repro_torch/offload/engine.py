@@ -14,12 +14,13 @@ once and interpreting it every step — the reference's
 Per layer, the low-precision parameters (``param_dtype``), the f32
 master copy and the Adam moments live in tiered vectors split between
 host and SSD by the configured ratios; the per-layer Adam runs on the
-host (``CpuAdam``, numpy), its (1-α) fraction overlapping backward and
-its α fraction the next step's forward (``OPT_LATE`` gates, §4.4). The
-embedding and LM head stay device-resident with their own Adam, K2
-(``kernels.fused_adam``); there is no f32 master for them (the
-reference keeps none either). Every layer's attention runs K1
-(``kernels.flash_attention``), forward and backward.
+host (``CpuAdam``, C++ on a pool of host threads), its (1-α) fraction
+overlapping backward and its α fraction the next step's forward
+(``OPT_LATE`` gates, §4.4). The embedding and LM head stay
+device-resident with their own Adam, K2 (``kernels.fused_adam``);
+there is no f32 master for them (the reference keeps none either).
+Every layer's attention runs K1 (``kernels.flash_attention``), forward
+and backward.
 
 Stacks: dense stacks of one block kind, as the reference's engine, and
 MoE stacks of ``first_dense_layers`` leading layers of one kind followed

@@ -1,6 +1,7 @@
 """Optimizers of the port: the in-memory Adam and its α-delayed split
 (torch, on the parameters' device), and the host Adam the offload
-engine runs per layer (numpy, ``CpuAdam``)."""
+engine runs per layer (``CpuAdam``: a fused C++ pass on a shared pool
+of host threads)."""
 from repro_torch.optim.adam import (  # noqa: F401
     AdamConfig,
     AdamState,

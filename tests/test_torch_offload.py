@@ -142,7 +142,7 @@ def test_plan_costs_and_snapshot_match_jax_engine():
     # the port's snapshot adds its host counters (syncs, pinned pool,
     # host Adam)
     assert set(tsnap) == (set(jsnap) - {"autotune"}) | {"counters"}
-    assert set(tsnap["counters"]) == {"host_syncs", "adam", "pool_slots",
-                                      "pool_pinned_bytes", "pool_copies",
-                                      "pool_fallbacks"}
+    assert set(tsnap["counters"]) == {"host_syncs", "adam", "adam_threads",
+                                      "pool_slots", "pool_pinned_bytes",
+                                      "pool_copies", "pool_fallbacks"}
     assert set(tsnap["lookahead"]) == set(jsnap["lookahead"])
